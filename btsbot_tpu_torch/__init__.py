@@ -1,0 +1,53 @@
+"""btsbot-tpu-torch: the PyTorch / CUDA port of btsbot_tpu for NVIDIA Hopper.
+
+The JAX package ``btsbot_tpu`` beside it is the reference; this package
+imports nothing of it (nor jax or flax) and holds its own copies of what it
+needs.  The serving path for mm_ConvNeXt runs here end to end: packet decode
+(``native``), ingest (``ops.preprocess``), the model forward with every
+ConvNeXt block in a hand-written CUDA kernel (``ops.convnext_block``,
+``ops.ln_mlp``), and the scorers (``engine.serve``).
+
+Entry points run on the CUDA card unless the caller passes
+``device="cpu"``; without a card and without that request they raise.
+"""
+
+from .version import __version__
+
+from .core.config import (
+    Config,
+    IMAGE_ONLY_MODELS,
+    METADATA_ONLY_MODELS,
+    MULTIMODAL_MODELS,
+    load_config,
+    normalize_config,
+)
+
+
+def __getattr__(name):
+    # Heavier surfaces load lazily so `import btsbot_tpu_torch` stays light.
+    if name in ("AlertScorer", "AlertStreamScorer", "verify_serving_parity"):
+        from .engine import serve
+        return getattr(serve, name)
+    if name == "build_model":
+        from .models.factory import build_model
+        return build_model
+    if name == "state_dict_from_jax":
+        from .interop.weights import state_dict_from_jax
+        return state_dict_from_jax
+    raise AttributeError(name)
+
+
+__all__ = [
+    "__version__",
+    "Config",
+    "load_config",
+    "normalize_config",
+    "IMAGE_ONLY_MODELS",
+    "METADATA_ONLY_MODELS",
+    "MULTIMODAL_MODELS",
+    "AlertScorer",
+    "AlertStreamScorer",
+    "verify_serving_parity",
+    "build_model",
+    "state_dict_from_jax",
+]

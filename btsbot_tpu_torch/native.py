@@ -1,0 +1,108 @@
+"""ctypes binding for the repository's native (C++) batched stamp decoder.
+
+Loads ``cpp/libbtsbot_native.so`` at the repository root (built with
+``make -C cpp``, and built on first use when a toolchain is present) and
+exposes ``decode_stamps(blobs) -> (stamps, status)``.  When the library
+cannot be built or loaded, the host falls back to the port's own Python
+decoder (``data.alerts``); ``decoder()`` says which one runs.  Either way
+this is host work: the decoded stamps go to the card afterwards.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+
+import numpy as np
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CPP_DIR = os.path.join(_REPO_ROOT, "cpp")
+_LIB_PATH = os.path.join(_CPP_DIR, "libbtsbot_native.so")
+
+STAMP_SIZE = 63
+PAD_VALUE = 1e-9
+
+_lib = None
+_load_attempted = False
+
+
+def _try_build() -> bool:
+    try:
+        subprocess.run(["make", "-C", _CPP_DIR], check=True,
+                       capture_output=True, timeout=120)
+    except (OSError, subprocess.SubprocessError):
+        return False
+    return os.path.exists(_LIB_PATH)
+
+
+def load_library():
+    """The loaded CDLL, or None when it cannot be built or loaded."""
+    global _lib, _load_attempted
+    if _lib is not None or _load_attempted:
+        return _lib
+    _load_attempted = True
+    if not os.path.exists(_LIB_PATH) and not _try_build():
+        return None
+    try:
+        lib = ctypes.CDLL(_LIB_PATH)
+    except OSError:
+        return None
+    lib.btsbot_decode_stamps.restype = ctypes.c_int
+    lib.btsbot_decode_stamps.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int64,
+        ctypes.c_int64,
+        ctypes.c_float,
+        ctypes.POINTER(ctypes.c_float),
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int32,
+    ]
+    _lib = lib
+    return _lib
+
+
+def decoder() -> str:
+    """'native' when the C++ decoder is loaded, else 'python'."""
+    return "native" if load_library() is not None else "python"
+
+
+def decode_stamps(blobs: list[bytes], out_size: int = STAMP_SIZE,
+                  pad_value: float = PAD_VALUE, num_threads: int = 0):
+    """Decode a batch of gzip+FITS stamp blobs.
+
+    Returns (stamps (N, out_size, out_size) float32, undersized stamps padded
+    bottom/right with pad_value; status (N,) int32, 0 = ok)."""
+    n = len(blobs)
+    # zeros: a failed decode leaves its plane untouched, so it must start
+    # deterministic
+    out = np.zeros((n, out_size, out_size), dtype=np.float32)
+    status = np.zeros(n, dtype=np.int32)
+
+    lib = load_library()
+    if lib is not None:
+        blob_array = (ctypes.c_char_p * n)(*blobs)
+        sizes = np.asarray([len(b) for b in blobs], dtype=np.int64)
+        lib.btsbot_decode_stamps(
+            blob_array, sizes.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            n, out_size, pad_value,
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            status.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), num_threads)
+        return out, status
+
+    from .data.alerts import decode_stamp
+
+    for i, blob in enumerate(blobs):
+        try:
+            stamp = decode_stamp(blob)
+            h, w = stamp.shape
+        except Exception:  # noqa: BLE001 — any malformed blob drops its alert
+            status[i] = 2
+            continue
+        if h > out_size or w > out_size:
+            status[i] = 3
+            continue
+        out[i] = pad_value
+        out[i, :h, :w] = stamp
+    return out, status

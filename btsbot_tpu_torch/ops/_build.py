@@ -1,0 +1,172 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``btsbot_tpu_torch/csrc/*.cu`` is compiled with ``nvcc`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface,
+``build/kernels/libbtsbot_kernels.so`` at the repository root, which is
+loaded with ``ctypes``.  The sources are compiled in parallel, one ``nvcc``
+each, then linked; the build runs at first use and again only when a
+source or a flag changes (a digest of both sits beside the library).
+
+Each C entry point returns ``cudaGetLastError()`` after its launch; the
+wrappers raise on anything but 0.  A failed build raises: there is no
+fallback to the plain PyTorch versions on a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+_PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = _PKG_DIR / "csrc"
+BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
+LIB_NAME = "libbtsbot_kernels.so"
+
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    # h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, C, hidden, is_bf16,
+    # stream
+    "btsbot_ln_mlp": [_P] * 10 + [ctypes.c_longlong, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_int, _P],
+    # x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, out, B, H, W, C,
+    # hidden, is_bf16, stream
+    "btsbot_convnext_block": [_P] * 11 + [ctypes.c_int] * 6 + [_P],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_info: dict = {}
+
+
+def find_nvcc() -> str:
+    """Path of nvcc: $CUDA_HOME/bin, then PATH, then /usr/local/cuda/bin."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(found)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels cannot be built")
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()
+
+
+def build() -> Path:
+    """Compile the kernels if the library is missing or stale; returns its
+    path.  Sets ``build_info`` (seconds, whether it compiled, ptxas
+    report)."""
+    lib_path = BUILD_DIR / LIB_NAME
+    stamp = BUILD_DIR / (LIB_NAME + ".sha256")
+    digest = _digest()
+    if lib_path.exists() and stamp.exists() and stamp.read_text() == digest:
+        build_info.update(seconds=0.0, compiled=False, ptxas="")
+        return lib_path
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    tag = f"{digest[:12]}.{os.getpid()}"
+    jobs = []
+    for src in sources():
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", str(src),
+               "-o", str(obj)]
+        jobs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    reports, failures = [], []
+    for src, _, proc in jobs:
+        out, err = proc.communicate()
+        reports.append(f"== {src.name}\n{out}{err}")
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed on {src.name}:\n{out}{err}")
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    tmp = BUILD_DIR / f"{LIB_NAME}.{tag}.tmp"
+    link = subprocess.run(
+        [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+         *[str(obj) for _, obj, _ in jobs]],
+        capture_output=True, text=True)
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"linking {LIB_NAME} failed:\n{link.stderr}")
+    os.replace(tmp, lib_path)
+    stamp.write_text(digest)
+    build_info.update(seconds=time.perf_counter() - t0, compiled=True,
+                      ptxas="\n".join(reports))
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name} failed to launch: CUDA error {err}")
+
+
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+KERNEL_WIDTHS = (64, 128, 256, 512)
+
+
+def kernel_operands(x, params, name: str) -> list:
+    """Validate a kernel's input tensor and bring its parameters to its type;
+    returns the contiguous operands, x first.  Raises on what the kernels
+    do not take."""
+    if not x.is_cuda:
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got {x.device}")
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name}: the kernel takes float32 or bfloat16, "
+                        f"got {x.dtype}")
+    if x.shape[-1] not in KERNEL_WIDTHS:
+        raise ValueError(f"{name}: the kernel takes C in {KERNEL_WIDTHS}, "
+                         f"got {x.shape[-1]}")
+    ops = [x.contiguous()]
+    for p in params:
+        if p.device != x.device:
+            raise ValueError(f"{name}: operands on {p.device} and {x.device}")
+        ops.append(p.to(x.dtype).contiguous())
+    return ops
+
+
+def current_stream(x) -> int:
+    """The raw handle of PyTorch's current stream on x's card."""
+    return torch.cuda.current_stream(x.device).cuda_stream

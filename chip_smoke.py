@@ -1,0 +1,518 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch / CUDA port (``btsbot_tpu_torch``) on one GPU.
+
+Run from the repository root on a machine with one NVIDIA Hopper card:
+
+    python3 chip_smoke.py
+
+It builds the CUDA kernels from ``btsbot_tpu_torch/csrc`` into
+``build/kernels/`` and drives the flagship serving path (mm_ConvNeXt,
+convnext_pico, 63×63×3 triplets + 25 metadata features) on the card:
+
+1. setup: the card's name and power limit, the kernel build, TF32 off;
+2. each kernel against its plain PyTorch version at the four pico stage
+   shapes at batch 3072, in float32 (rtol 1e-4 / atol 1e-5: summation order)
+   and bfloat16 (rtol = atol = 3e-2: two bf16 roundings), with CUDA-event
+   times of both and the bound of the work on an H100;
+3. the main path: ``AlertScorer`` (bf16 and f32, batch 3072) on 2×3072+500
+   alerts and on the example alerts, and ``AlertStreamScorer`` on 2×3072
+   synthetic packets; 12 block-kernel launches per batch; f32 scores within
+   1e-5 of the plain model on the card, bf16 within 0.01 of f32, stream
+   drop masks identical to the array path's;
+4. ``fast_mm_convnext_logits``: 12 ``fused_ln_mlp`` launches, logits within
+   rtol 1e-4 of the module's f32 logits;
+5. a ``{"kernels": [...]}`` line, alerts/s for each scorer (information only);
+6. the card's name and power limit, then as the last line
+   ``{"ok": true, "device": {...}}``.
+
+Any failed phase exits non-zero and prints no result.  So does a host
+without CUDA, and a directory without the port beside this script.
+"""
+
+from __future__ import annotations
+
+import csv
+import gzip
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+import traceback
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+BATCH = 3072
+DEVICE = "cuda"
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
+PEAK_OPS = {"bfloat16": 989e12,  # dense bf16 tensor cores
+            "float32": 67e12}    # float32 outside the tensor cores (no TF32)
+PICO_STAGES = [(15, 64, 2), (7, 128, 2), (3, 256, 6), (1, 512, 2)]  # side, C, depth
+TOL = {"float32": dict(rtol=1e-4, atol=1e-5), "bfloat16": dict(rtol=3e-2, atol=3e-2)}
+
+META_COLS = [
+    "sgscore1", "distpsnr1", "sgscore2", "distpsnr2", "fwhm", "magpsf",
+    "sigmapsf", "chipsf", "ra", "dec", "diffmaglim", "ndethist", "nmtchps",
+    "age", "days_since_peak", "days_to_peak", "peakmag_so_far", "new_drb",
+    "ncovhist", "nnotdet", "chinr", "sharpnr", "scorr", "sky", "maxmag_so_far",
+]
+# the flagship configuration (the JAX package's FLAGSHIP_CONFIG)
+FLAGSHIP_CONFIG = {
+    "model_name": "mm_ConvNeXt",
+    "model_kind": "convnext_pico.d1_in1k",
+    "train_data_version": "v12",
+    "metadata_cols": META_COLS,
+    "meta_fc1_neurons": 128, "meta_fc2_neurons": 128, "meta_dropout": 0.25,
+    "comb_fc1_neurons": 256, "comb_fc2_neurons": 32, "comb_dropout": 0.2,
+    "learning_rate": 1e-4, "beta_1": 0.99, "beta_2": 0.99, "batch_size": 64,
+    "epochs": 10, "warmup_epochs": 1, "patience": 5, "random_seed": 2,
+}
+EXAMPLE_DIR = os.path.join(ROOT, "btsbot_tpu", "example_data")
+
+
+class PhaseFailed(Exception):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise PhaseFailed(what)
+    print(f"  ok: {what}", flush=True)
+
+
+def gpu_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int = 10, warmup: int = 3) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# ------------------------------ phase 1 ------------------------------
+
+def phase_setup(state: dict) -> None:
+    import torch
+    from btsbot_tpu_torch.ops import _build
+
+    state["gpu"] = gpu_line()
+    print(f"card: {state['gpu']}", flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.library()
+    secs = time.perf_counter() - t0
+    info = _build.build_info
+    print(f"kernels built in {secs:.1f} s (compiled={info.get('compiled')}) "
+          f"into {_build.BUILD_DIR}", flush=True)
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", info.get("ptxas", ""))]
+    if regs:
+        print(f"  ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} registers",
+              flush=True)
+    for line in info.get("ptxas", "").splitlines():
+        if "spill" in line and " 0 bytes spill stores" not in line:
+            print(f"  ptxas: {line.strip()}", flush=True)
+
+
+# ------------------------------ phase 2 ------------------------------
+
+def _block_inputs(side: int, c: int, dtype, seed: int):
+    """Block input and parameters at the scale of torch's default init,
+    with γ and the LN affine randomised."""
+    import torch
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def u(shape, bound):
+        return (torch.rand(shape, generator=g, device=DEVICE) * 2 - 1) * bound
+
+    def n(shape, std):
+        return torch.randn(shape, generator=g, device=DEVICE) * std
+
+    hid = 4 * c
+    x = n((BATCH, side, side, c), 1.0)
+    params = [u((c, 1, 7, 7), 1 / 7), u((c,), 1 / 7), 1 + n((c,), 0.1), n((c,), 0.1),
+              u((hid, c), c ** -0.5), u((hid,), c ** -0.5),
+              u((c, hid), hid ** -0.5), u((c,), hid ** -0.5), n((c,), 0.5)]
+    return x.to(dtype), [p.to(dtype) for p in params]
+
+
+def _bound(bytes_moved: float, ops: float, dtype_name: str) -> tuple[float, str]:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_kernels(state: dict) -> None:
+    import torch
+    from btsbot_tpu_torch.ops.convnext_block import (
+        convnext_block_fused, convnext_block_reference, depthwise_conv7_reference)
+    from btsbot_tpu_torch.ops.ln_mlp import fused_ln_mlp, ln_mlp_reference
+
+    results = {"convnext_block_fused": [], "fused_ln_mlp": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for side, c, depth in PICO_STAGES:
+            x, p = _block_inputs(side, c, dtype, seed=c)
+            m = BATCH * side * side
+            item = x.element_size()
+            w_bytes = sum(t.numel() for t in p) * item
+            mlp_ops = 2 * 2 * m * c * 4 * c            # two products
+            with torch.inference_mode():
+                # the whole block
+                got = convnext_block_fused(x, *p)
+                want = convnext_block_reference(x, *p)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                ok = torch.allclose(got.float(), want.float(), **TOL[dname])
+                ms = time_ms(lambda: convnext_block_fused(x, *p))
+                plain_ms = time_ms(lambda: convnext_block_reference(x, *p))
+                bound_ms, bound_by = _bound(2 * m * c * item + w_bytes,
+                                            mlp_ops + 2 * 49 * m * c, dname)
+                results["convnext_block_fused"].append(dict(
+                    dtype=dname, shape=[BATCH, side, side, c], depth=depth,
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by))
+                print(f"  convnext_block_fused {dname} ({BATCH},{side},{side},{c}): "
+                      f"max|d|={err:.3g} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                      f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+                check(ok, f"convnext_block_fused matches its plain version "
+                          f"({dname}, C={c})")
+
+                # the LN -> MLP half on the same block's conv output
+                h = depthwise_conv7_reference(x, p[0], p[1]).reshape(-1, c)
+                res = x.reshape(-1, c)
+                q = p[2:]
+                got = fused_ln_mlp(h, res, *q)
+                want = ln_mlp_reference(h, res, *q)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                ok = torch.allclose(got.float(), want.float(), **TOL[dname])
+                ms = time_ms(lambda: fused_ln_mlp(h, res, *q))
+                plain_ms = time_ms(lambda: ln_mlp_reference(h, res, *q))
+                bound_ms, bound_by = _bound(
+                    3 * m * c * item + sum(t.numel() for t in q) * item, mlp_ops, dname)
+                results["fused_ln_mlp"].append(dict(
+                    dtype=dname, shape=[m, c], depth=depth, max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
+                print(f"  fused_ln_mlp {dname} ({m},{c}): max|d|={err:.3g} "
+                      f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                      f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+                check(ok, f"fused_ln_mlp matches its plain version ({dname}, C={c})")
+
+                # a partial batch: rows past the last full tile are masked
+                xr, mr = x[:7].contiguous(), 7 * side * side + 5
+                ok = torch.allclose(convnext_block_fused(xr, *p).float(),
+                                    convnext_block_reference(xr, *p).float(), **TOL[dname])
+                ok &= torch.allclose(fused_ln_mlp(h[:mr], res[:mr], *q).float(),
+                                     ln_mlp_reference(h[:mr], res[:mr], *q).float(),
+                                     **TOL[dname])
+                check(ok, f"both kernels match at a ragged size ({dname}, C={c}, "
+                          f"B=7, M={mr})")
+            del x, p, h, res, got, want
+            torch.cuda.empty_cache()
+    print("  library_ms: none (no single PyTorch call computes either fused block)",
+          flush=True)
+    state["kernel_results"] = results
+
+
+# ------------------------------ phase 3 ------------------------------
+
+def _randomise(model, seed: int) -> None:
+    """γ (init 1e-6 makes every block an identity) and the BN statistics
+    to seeded random values."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    with torch.no_grad():
+        for name, prm in model.named_parameters():
+            if name.endswith(".gamma"):
+                prm.copy_(torch.randn(prm.shape, generator=g) * 0.5)
+        bn = model.metadata_branch[0]
+        bn.running_mean.copy_(torch.randn(bn.running_mean.shape, generator=g))
+        bn.running_var.copy_(torch.rand(bn.running_var.shape, generator=g) * 1.5 + 0.5)
+
+
+def _normalised_triplets(n: int, seed: int):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    t = rng.normal(size=(n, 63, 63, 3)).astype(np.float32)
+    return t / np.sqrt((t ** 2).sum(axis=(1, 2), keepdims=True))
+
+
+def _example_data():
+    import numpy as np
+    trips = np.load(os.path.join(EXAMPLE_DIR, "usage_triplets.npy")).astype(np.float32)
+    with open(os.path.join(EXAMPLE_DIR, "usage_candidates.csv"), newline="") as f:
+        rows = list(csv.DictReader(f))
+    meta = np.asarray([[float(r[c]) for c in META_COLS] for r in rows], np.float32)
+    return trips, meta
+
+
+def _plain_scores(model, triplets, metadata, batch: int):
+    """Scores of the plain model (every block in its plain version) on the
+    card, batch by batch with the scorer's padding."""
+    import numpy as np
+    import torch
+    from btsbot_tpu_torch.engine.serve import _bucket_ladder, _padded, _pick_bucket
+
+    ladder = _bucket_ladder(batch)
+    out = []
+    with torch.inference_mode():
+        for s in range(0, len(triplets), batch):
+            e = min(s + batch, len(triplets))
+            bs = _pick_bucket(ladder, e - s)
+            img = torch.from_numpy(_padded(triplets[s:e], bs)).to(DEVICE)
+            meta = torch.from_numpy(_padded(metadata[s:e], bs)).to(DEVICE)
+            z = model(img, meta, plain=True).reshape(-1).float()
+            out.append(torch.sigmoid(z)[:e - s].cpu().numpy())
+    return np.concatenate(out)
+
+
+def _numpy_corrupt_mask(raw):
+    """Independent numpy statement of the drop rule (non-finite median,
+    all-zero after cleaning, float32 sum-of-squares overflow)."""
+    import numpy as np
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # all-NaN cutouts
+        med = np.nanmedian(raw, axis=(1, 2))
+    cleaned = np.nan_to_num(raw)
+    with np.errstate(over="ignore"):
+        sq = np.square(cleaned).sum(axis=(1, 2), dtype=np.float32)
+    bad = ~np.isfinite(med) | np.all(cleaned == 0, axis=(1, 2)) | ~np.isfinite(sq)
+    return bad.any(axis=-1)
+
+
+def _n_batches(n: int) -> int:
+    return -(-n // BATCH)
+
+
+def phase_main_path(state: dict) -> None:
+    import numpy as np
+    import torch
+    from btsbot_tpu_torch import AlertScorer, AlertStreamScorer, native
+    from btsbot_tpu_torch.data.fits import write_fits_image
+    from btsbot_tpu_torch.data.synthetic import synthetic_packets
+    from btsbot_tpu_torch.engine.serve import _gather_metadata
+    from btsbot_tpu_torch.models.factory import build_model
+    from btsbot_tpu_torch.ops.convnext_block import convnext_block_fused
+    from btsbot_tpu_torch.ops.ln_mlp import fused_ln_mlp
+    from btsbot_tpu_torch.ops.preprocess import preprocess_triplets
+
+    model = build_model(FLAGSHIP_CONFIG, dtype=torch.float32, device=DEVICE, seed=0)
+    _randomise(model, seed=1)
+    weights = model.state_dict()
+    state["model"], state["weights"] = model, weights
+
+    n_big = 2 * BATCH + 500
+    trips = _normalised_triplets(n_big, seed=2)
+    meta = np.random.default_rng(3).normal(size=(n_big, len(META_COLS))).astype(np.float32)
+    ex_trips, ex_meta = _example_data()
+    print(f"  {len(ex_trips)} example alerts, {n_big} synthetic alerts", flush=True)
+
+    scorers = {
+        "bf16": AlertScorer(FLAGSHIP_CONFIG, weights, batch_size=BATCH, device=DEVICE),
+        "f32": AlertScorer(FLAGSHIP_CONFIG, weights, batch_size=BATCH,
+                           dtype=torch.float32, device=DEVICE),
+    }
+    ladder = [b for b in (BATCH // 16, BATCH // 4, BATCH) if b >= 64]
+    check(scorers["bf16"].bucket_sizes == ladder, f"bucket ladder {ladder}")
+    stream = AlertStreamScorer(FLAGSHIP_CONFIG, weights, batch_size=BATCH,
+                               device=DEVICE)
+    print(f"  stamp decoder: {native.decoder()}", flush=True)
+
+    # packets: synthetic, plus three that must be dropped
+    packets = list(synthetic_packets(2 * BATCH - 3, META_COLS, seed=4, unique_stamps=True))
+    bad = list(synthetic_packets(3, META_COLS, seed=5, unique_stamps=True))
+    bad[0]["cutoutScience"] = {"stampData": gzip.compress(write_fits_image(
+        np.full((63, 63), np.nan, np.float32)))}
+    bad[1]["cutoutTemplate"] = {"stampData": gzip.compress(write_fits_image(
+        np.zeros((63, 63), np.float32)))}
+    bad[2]["cutoutDifference"] = None
+    packets[10:10] = bad[:1]
+    packets[3000:3000] = bad[1:2]
+    packets[5000:5000] = bad[2:]
+
+    # warm every bucket outside the counted run
+    for sc in scorers.values():
+        sc(trips[:1], meta[:1]), sc(trips[:500], meta[:500]), sc(trips[:BATCH], meta[:BATCH])
+    stream.warmup()
+    torch.cuda.synchronize()
+
+    # ---- the counted run of the main path
+    convnext_block_fused.launches = 0
+    fused_ln_mlp.launches = 0
+    timings, scores = {}, {}
+    for name, sc in scorers.items():
+        t0 = time.perf_counter()
+        scores[name] = sc(trips, meta)
+        timings[f"AlertScorer {name}"] = (n_big, time.perf_counter() - t0)
+        scores[name + "_ex"] = sc(ex_trips, ex_meta)
+    t0 = time.perf_counter()
+    s_stream, d_stream = stream(packets)
+    timings["AlertStreamScorer bf16"] = (len(packets), time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    launches = {"convnext_block_fused": convnext_block_fused.launches,
+                "fused_ln_mlp": fused_ln_mlp.launches}
+    state["launches_main"] = launches
+    batches = 2 * (_n_batches(n_big) + _n_batches(len(ex_trips))) + _n_batches(len(packets))
+    print(f"  launches: {launches} over {batches} batches", flush=True)
+    check(launches["convnext_block_fused"] == 12 * batches,
+          f"12 block-kernel launches per batch ({12 * batches})")
+
+    # ---- scores
+    for name in ("f32", "bf16", "f32_ex", "bf16_ex"):
+        check(bool(np.all(np.isfinite(scores[name]))), f"{name} scores finite")
+    plain = _plain_scores(model, trips, meta, BATCH)
+    plain_ex = _plain_scores(model, ex_trips, ex_meta, BATCH)
+    d32 = max(np.abs(scores["f32"] - plain).max(), np.abs(scores["f32_ex"] - plain_ex).max())
+    print(f"  f32 kernel path vs plain model: max|d|={d32:.3g}", flush=True)
+    check(d32 <= 1e-5, "f32 scores within 1e-5 of the plain model on the card")
+    d16 = max(np.abs(scores["bf16"] - scores["f32"]).max(),
+              np.abs(scores["bf16_ex"] - scores["f32_ex"]).max())
+    print(f"  bf16 vs f32 scores: max|d|={d16:.3g}", flush=True)
+    check(d16 <= 0.01, "bf16 scores within 0.01 of f32")
+
+    # ---- stream against the array path on the same decoded triplets
+    t0 = time.perf_counter()
+    raw, _, decode_bad = stream._prepare(packets)
+    secs = time.perf_counter() - t0
+    print(f"  host stage alone (decode + metadata gather, {native.decoder()}): "
+          f"{len(packets) / secs:.1f} packets/s ({secs:.3f} s)", flush=True)
+    want_drop = _numpy_corrupt_mask(raw) | decode_bad
+    check(int(want_drop.sum()) == 3 and bool(np.array_equal(d_stream, want_drop)),
+          "stream drop mask identical to the array path's (3 dropped)")
+    with torch.inference_mode():
+        proc, drop_dev = preprocess_triplets(torch.from_numpy(raw).to(DEVICE))
+    check(bool(np.array_equal(drop_dev.cpu().numpy() | decode_bad, want_drop)),
+          "device corrupt mask identical to the numpy one")
+    arr = scorers["bf16"](proc.cpu().numpy(), _gather_metadata(packets, META_COLS))
+    keep = ~want_drop
+    ds = np.abs(s_stream[keep] - arr[keep]).max()
+    print(f"  stream vs array scores (bf16): max|d|={ds:.3g}", flush=True)
+    check(ds <= 0.01 and bool(np.all(np.isnan(s_stream[want_drop]))),
+          "stream scores match the array path; dropped alerts are NaN")
+
+    state["timings"] = timings
+    state["throughput"] = {name: sc.throughput() for name, sc in scorers.items()}
+
+
+# ------------------------------ phase 4 ------------------------------
+
+def phase_fast_path(state: dict) -> None:
+    import numpy as np
+    import torch
+    from btsbot_tpu_torch.ops.convnext_block import convnext_block_fused
+    from btsbot_tpu_torch.ops.ln_mlp import fast_mm_convnext_logits, fused_ln_mlp
+
+    model, weights = state["model"], state["weights"]
+    trips = torch.from_numpy(_normalised_triplets(BATCH, seed=6)).to(DEVICE)
+    meta = torch.from_numpy(np.random.default_rng(7).normal(
+        size=(BATCH, len(META_COLS))).astype(np.float32)).to(DEVICE)
+    with torch.inference_mode():
+        want = model(trips, meta).reshape(-1)
+        torch.cuda.synchronize()
+        convnext_block_fused.launches = 0
+        fused_ln_mlp.launches = 0
+        got = fast_mm_convnext_logits(weights, trips, meta, FLAGSHIP_CONFIG)
+        torch.cuda.synchronize()
+        launches = {"convnext_block_fused": convnext_block_fused.launches,
+                    "fused_ln_mlp": fused_ln_mlp.launches}
+    state["launches_fast"] = launches
+    print(f"  launches: {launches}", flush=True)
+    check(launches["fused_ln_mlp"] == 12, "12 fused_ln_mlp launches")
+    err = (got - want).abs().max().item()
+    print(f"  fast path vs module logits (f32): max|d|={err:.3g}", flush=True)
+    check(torch.allclose(got, want, rtol=1e-4, atol=1e-5),
+          "fast_mm_convnext_logits within rtol 1e-4 of the module")
+
+
+# ------------------------------ phase 5 ------------------------------
+
+def _kernel_entry(name, source, replaces, launches, rows):
+    """One forward's worth of launches at batch 3072 in bf16 (the serving
+    type): each stage's time × its depth, summed over the four stages."""
+    bf = [r for r in rows if r["dtype"] == "bfloat16"]
+
+    def total(key):
+        return sum(r[key] * r["depth"] for r in bf)
+
+    t_ops = sum(r["bound_ms"] * r["depth"] for r in bf if r["bound_by"] == "operations")
+    t_bytes = sum(r["bound_ms"] * r["depth"] for r in bf if r["bound_by"] == "bytes")
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "library_ms": None,
+            "per": "one pico forward at batch 3072, bfloat16 (12 launches)"}
+
+
+def phase_report(state: dict) -> None:
+    res = state["kernel_results"]
+    kernels = [
+        _kernel_entry("convnext_block_fused", "btsbot_tpu_torch/csrc/convnext_block.cu",
+                      "btsbot_tpu/ops/pallas_convnext.py:147",
+                      state["launches_main"]["convnext_block_fused"],
+                      res["convnext_block_fused"]),
+        _kernel_entry("fused_ln_mlp", "btsbot_tpu_torch/csrc/ln_mlp.cu",
+                      "btsbot_tpu/ops/pallas_mlp.py:99",
+                      state["launches_fast"]["fused_ln_mlp"], res["fused_ln_mlp"]),
+    ]
+    for name, (n, secs) in state["timings"].items():
+        print(f"  {name}: {n / secs:.1f} alerts/s end to end ({n} alerts, "
+              f"{secs:.3f} s) on {state['gpu']}", flush=True)
+    for name, rate in state["throughput"].items():
+        print(f"  AlertScorer {name} forward on device-resident inputs: "
+              f"{rate:.1f} alerts/s on {state['gpu']}", flush=True)
+    state["kernels_line"] = json.dumps({"kernels": kernels})
+
+
+PHASES = [("setup", phase_setup), ("kernels", phase_kernels),
+          ("main path", phase_main_path), ("fast path", phase_fast_path),
+          ("report", phase_report)]
+
+
+def main() -> int:
+    if not os.path.isdir(os.path.join(ROOT, "btsbot_tpu_torch", "csrc")):
+        print("FAIL: btsbot_tpu_torch is not beside this script", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import torch
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
+        return 3
+    state: dict = {}
+    for name, fn in PHASES:
+        print(f"== phase: {name}", flush=True)
+        t0 = time.perf_counter()
+        try:
+            fn(state)
+        except Exception:  # noqa: BLE001 — reported, then the run fails
+            traceback.print_exc()
+            print(f"FAIL: phase {name}", flush=True)
+            return 1
+        print(f"   ({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(state["kernels_line"], flush=True)
+    print(gpu_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

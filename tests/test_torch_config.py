@@ -1,0 +1,82 @@
+"""The port's config handling, and its independence from JAX.
+
+``btsbot_tpu_torch`` imports torch, numpy and the standard library only: no
+jax, no flax, nothing of ``btsbot_tpu`` (whose ``__init__`` loads flax), and
+no pandas.  A subprocess import and an AST scan of every module (and of
+``chip_smoke.py``) hold it to that.
+"""
+
+import ast
+import glob
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+from btsbot_tpu.core.config import normalize_config as jax_normalize_config
+from btsbot_tpu_torch.core.config import normalize_config
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIGS = sorted(glob.glob(os.path.join(REPO, "btsbot_tpu", "train_configs", "*.json"))) \
+    + [os.path.join(REPO, "btsbot_tpu", "example_data", "train_config.json")]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "btsbot_tpu", "pandas")
+
+
+@pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
+def test_normalize_config_agrees_with_jax(path):
+    with open(path) as f:
+        raw = json.load(f)
+    got, want = normalize_config(raw), jax_normalize_config(raw)
+    assert dict(got) == dict(want)
+    for prop in ("model_category", "need_triplets", "need_metadata"):
+        assert getattr(got, prop) == getattr(want, prop)
+
+
+@pytest.mark.parametrize("raw", [
+    {"model_name": "mm_ConvNeXt", "comb_fc_neurons": 16, "learning_rate": "3e-4",
+     "epochs": "7"},
+    {"model_name": "ConvNeXt"},
+    {"model_name": "mm_MaxViT", "comb_fc1_neurons": 4, "comb_fc_neurons": 16},
+])
+def test_legacy_repairs_and_defaults_agree_with_jax(raw):
+    got, want = normalize_config(raw), jax_normalize_config(raw)
+    assert dict(got) == dict(want)
+    assert got.model_kind == want.model_kind
+    got["metadata_cols"].append("x")  # defaults are not shared between configs
+    assert normalize_config(raw)["metadata_cols"] == []
+
+
+def test_import_leaves_jax_out_of_sys_modules():
+    code = (
+        "import sys\n"
+        "import btsbot_tpu_torch\n"
+        "import btsbot_tpu_torch.engine.serve, btsbot_tpu_torch.models.factory\n"
+        "import btsbot_tpu_torch.ops.ln_mlp, btsbot_tpu_torch.ops.convnext_block\n"
+        "import btsbot_tpu_torch.ops.preprocess, btsbot_tpu_torch.interop.weights\n"
+        "import btsbot_tpu_torch.native, btsbot_tpu_torch.data.synthetic\n"
+        "btsbot_tpu_torch.AlertScorer, btsbot_tpu_torch.build_model\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(glob.glob(
+    os.path.join(REPO, "btsbot_tpu_torch", "**", "*.py"), recursive=True))
+    + [os.path.join(REPO, "chip_smoke.py")], ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_import_anywhere_in_the_port(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
