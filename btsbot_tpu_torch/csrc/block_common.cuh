@@ -1,8 +1,15 @@
 // Device code shared by the two ConvNeXt block kernels (ln_mlp.cu and
-// convnext_block.cu): the storage types, the rounding points, a LayerNorm of
-// one row held by one warp, and the LN -> fc1 -> GELU -> fc2 -> gamma ->
-// residual tile loop that keeps the 4C hidden activations out of device
-// memory.
+// convnext_block.cu), float32 side: a LayerNorm of one row held by one warp
+// and the LN -> fc1 -> GELU -> fc2 -> gamma -> residual tile loop that keeps
+// the 4C hidden activations out of device memory.  The bfloat16 side of both
+// kernels (wgmma + TMA) is hopper_mlp.cuh.
+//
+// float32 must agree with the plain version to 1e-5, which rules out TF32,
+// so both products are exact float FMAs on the CUDA cores (ceiling
+// 67 TFLOP/s): operands staged as float in shared memory with one float of
+// row padding, a 16 x 16 thread grid, weight chunks staged through
+// registers 16 loads at a time.  That is what bounds it; it serves parity
+// checks and training-side callers, not the serving path.
 //
 // Layouts are the ones the port's modules hold (PyTorch's own):
 //   rows   (M, C) row-major, NHWC pixels flattened;
@@ -14,42 +21,15 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <type_traits>
-
 namespace btsbot {
 
 constexpr int kThreads = 256;  // a 16 x 16 grid of threads for both products
 constexpr int kWarps = kThreads / 32;
 constexpr float kLnEps = 1e-6f;
 
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as XLA and PyTorch do
-}
-
-// Round to the storage type and back: applied wherever the JAX kernel casts
-// (after each product, after each bias, scale or residual add).  A no-op for
-// float.
-template <typename T> __device__ __forceinline__ float rnd(float v) {
-  return to_f<T>(from_f<T>(v));
-}
-
-// GELU with the JAX package's dtype rule (models/common.py gelu_exact): the
-// erf form in float32, the tanh form in bfloat16.
-template <typename T> __device__ __forceinline__ float gelu(float x) {
-  if constexpr (std::is_same<T, float>::value) {
-    return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
-  } else {
-    const float u = 0.79788456080286536f * (x + 0.044715f * x * x * x);
-    return 0.5f * x * (1.0f + tanhf(u));
-  }
+// GELU, erf form (the JAX package's rule for float32, models/common.py).
+__device__ __forceinline__ float gelu_erf(float x) {
+  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -87,13 +67,11 @@ template <int C> struct Smem {
 };
 
 // LayerNorm of one row held by one warp: v[q] is channel lane + 32 q, in
-// float.  Statistics in float (mean, then mean of squared deviations, eps
-// 1e-6); the normalised value is rounded to the storage type before the
-// scale and the shift, as the JAX kernel does (pallas_mlp.py:63-67).
-template <typename T, int C>
+// float.  Mean, then mean of squared deviations, eps 1e-6.
+template <int C>
 __device__ __forceinline__ void layer_norm_row(const float (&v)[C / 32],
-                                               const T* __restrict__ ln_w,
-                                               const T* __restrict__ ln_b,
+                                               const float* __restrict__ ln_w,
+                                               const float* __restrict__ ln_b,
                                                float* __restrict__ xs_row, int lane) {
   constexpr int Q = C / 32;
   float s = 0.f;
@@ -110,9 +88,7 @@ __device__ __forceinline__ void layer_norm_row(const float (&v)[C / 32],
 #pragma unroll
   for (int q = 0; q < Q; ++q) {
     const int c = lane + 32 * q;
-    float x = rnd<T>((v[q] - mu) * rstd);
-    x = rnd<T>(x * to_f<T>(ln_w[c]));
-    xs_row[c] = rnd<T>(x + to_f<T>(ln_b[c]));
+    xs_row[c] = (v[q] - mu) * rstd * ln_w[c] + ln_b[c];
   }
 }
 
@@ -125,12 +101,12 @@ __device__ __forceinline__ void layer_norm_row(const float (&v)[C / 32],
 // registers) gathers their product with fc2.  The hidden activations never
 // reach device memory.  Thread (ty, tx) owns rows ty + 16 i and columns
 // tx + 16 j of each product.
-template <typename T, int C>
+template <int C>
 __device__ __forceinline__ void mlp_tile(float* __restrict__ smem,
-                                         const T* __restrict__ w1, const T* __restrict__ b1,
-                                         const T* __restrict__ w2, const T* __restrict__ b2,
-                                         const T* __restrict__ gamma,
-                                         const T* __restrict__ res, T* __restrict__ out,
+                                         const float* __restrict__ w1, const float* __restrict__ b1,
+                                         const float* __restrict__ w2, const float* __restrict__ b2,
+                                         const float* __restrict__ gamma,
+                                         const float* __restrict__ res, float* __restrict__ out,
                                          long long row0, long long M, int hidden) {
   using S = Smem<C>;
   constexpr int TM = S::TM, J = S::J;
@@ -162,7 +138,7 @@ __device__ __forceinline__ void mlp_tile(float* __restrict__ smem,
     __syncthreads();  // XS is complete; the last chunk's readers are done
 #pragma unroll 1
     for (int g = 0; g < NW; g += G) {
-      T r[G];
+      float r[G];
 #pragma unroll
       for (int t = 0; t < G; ++t) {
         const int i = tid + (g + t) * kThreads;
@@ -171,12 +147,12 @@ __device__ __forceinline__ void mlp_tile(float* __restrict__ smem,
 #pragma unroll
       for (int t = 0; t < G; ++t) {
         const int i = tid + (g + t) * kThreads;
-        w1s[(i / C) * (C + 1) + i % C] = to_f<T>(r[t]);
+        w1s[(i / C) * (C + 1) + i % C] = r[t];
       }
     }
 #pragma unroll 1
     for (int g = 0; g < NW; g += G) {
-      T r[G];
+      float r[G];
 #pragma unroll
       for (int t = 0; t < G; ++t) {
         const int i = tid + (g + t) * kThreads;
@@ -185,10 +161,10 @@ __device__ __forceinline__ void mlp_tile(float* __restrict__ smem,
 #pragma unroll
       for (int t = 0; t < G; ++t) {
         const int i = tid + (g + t) * kThreads;
-        w2s[(i / J) * (J + 1) + i % J] = to_f<T>(r[t]);
+        w2s[(i / J) * (J + 1) + i % J] = r[t];
       }
     }
-    for (int i = tid; i < J; i += kThreads) b1s[i] = to_f<T>(b1[j0 + i]);
+    for (int i = tid; i < J; i += kThreads) b1s[i] = b1[j0 + i];
     __syncthreads();
 
     // first product: (TM, C) . (C, J), float accumulation
@@ -214,8 +190,7 @@ __device__ __forceinline__ void mlp_tile(float* __restrict__ smem,
 #pragma unroll
       for (int j = 0; j < CA; ++j) {
         const int jj = tx + 16 * j;
-        const float t = rnd<T>(rnd<T>(h[i][j]) + b1s[jj]);
-        gs[(ty + 16 * i) * (J + 1) + jj] = rnd<T>(gelu<T>(t));
+        gs[(ty + 16 * i) * (J + 1) + jj] = gelu_erf(h[i][j] + b1s[jj]);
       }
     __syncthreads();
 
@@ -234,7 +209,7 @@ __device__ __forceinline__ void mlp_tile(float* __restrict__ smem,
     }
   }
 
-  // epilogue: + b2, * gamma, + residual, rounding as pallas_mlp.py:71-73
+  // epilogue: + b2, * gamma, + residual
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const long long r = row0 + ty + 16 * i;
@@ -242,9 +217,7 @@ __device__ __forceinline__ void mlp_tile(float* __restrict__ smem,
 #pragma unroll
     for (int c = 0; c < CB; ++c) {
       const int col = tx + 16 * c;
-      const float y = rnd<T>(rnd<T>(acc[i][c]) + to_f<T>(b2[col]));
-      const float z = rnd<T>(y * to_f<T>(gamma[col]));
-      out[r * C + col] = from_f<T>(to_f<T>(res[r * C + col]) + z);
+      out[r * C + col] = res[r * C + col] + (acc[i][c] + b2[col]) * gamma[col];
     }
   }
 }

@@ -7,40 +7,58 @@
 // convnext_block_fused (kernel _kernel, plain version _block_reference).
 // What it keeps out of device memory is what the TPU kernel keeps out of
 // HBM: the convolution output, the normalised rows and the 4C hidden
-// activations; a block reads x once (plus the halo, from L1/L2) and writes
-// out once.  The TPU version's padding of H and W to multiples of 8 and its
-// batch tile are gone: a block takes TM consecutive pixels of the flattened
-// (B*H*W) index, which may span samples (at the 3x3 and 1x1 maps of the
-// later stages one sample holds fewer pixels than a tile), and every tap
-// checks its own bounds, so SAME padding and the ragged last tile need no
-// padded copy.
+// activations; a block reads x once (plus the halo) and writes out once.
+// The TPU version's padding of H and W to multiples of 8 and its batch tile
+// are gone: a block takes TM consecutive pixels of the flattened (B*H*W)
+// index, which may span samples (at the 3x3 and 1x1 maps of the later
+// stages one sample holds fewer pixels than a tile), and every tap checks
+// its own bounds, so SAME padding and the ragged last tile need no padded
+// copy.
 //
 // What bounds it on the H100: per pixel, the two products' 8 C^2
 // multiply-adds and the 49 C of the taps, against 2 C values read and
 // written.  In bf16 on the tensor cores the two limits are about even at
-// C = 64 (stage 0 at batch 3072: 0.053 ms for the bytes, 0.050 ms for the
-// operations) and the operations win from C = 128 on; in f32 (no TF32) the
-// operations win everywhere.  This first version runs all of it as float
-// FMAs on the CUDA cores (ceiling 67 TFLOP/s) and re-reads W1 and W2 through
-// L2 in every block, so it is far from either limit; PERF.md has its times.
-// The depthwise weights are staged transposed, [tap][C], in the shared
-// memory that the MLP's weight chunks use afterwards, so a warp's 32
-// channel reads of one tap are conflict-free.
+// C = 64 and the operations win from C = 128 on; in f32 (no TF32) the
+// operations win everywhere.
+//
+// bfloat16 (the serving type) runs the design of hopper_mlp.cuh for the MLP
+// half.  In front of it: every input a tap of the tile's TM pixels can
+// touch lies in the contiguous range [row0 - halo, row0 + TM + halo) of the
+// flattened index, halo = ry W + rx with ry = min(3, H - 1), rx =
+// min(3, W - 1) (taps further out are outside every sample: at a 1x1 map
+// only the centre tap is left).  The producer thread brings that range in
+// with one bulk copy, clipped to [0, M); the consumers read the taps from
+// that tile (a pixel's channels across 8-32 lanes, 16 bytes a lane; a tap's
+// weights are loaded once for four of the lane's rows; a tap that falls
+// outside a pixel's sample is tested away, never multiplied), and the
+// epilogue takes the shortcut from the
+// same tile.  The taps' weights sit beside it as float, [tap][C], only the
+// (2 ry + 1)(2 rx + 1) taps that can be in bounds.  What is left between it
+// and its bound: the taps and the GELU run on the CUDA cores and are not
+// overlapped with the products of the same warpgroup (at C <= 128 they take
+// most of a block's time), each block re-reads W1 and W2 from L2,
+// and the last stage has only M / 64 blocks for 132 SMs.  PERF.md has the
+// times.
+//
+// float32 keeps exact float FMAs on the CUDA cores (convnext_block_kernel
+// below with block_common.cuh's mlp_tile; the depthwise weights staged
+// transposed in the shared memory the weight chunks use afterwards).
 
 #include "block_common.cuh"
+#include "hopper_mlp.cuh"
 
 namespace btsbot {
 
 constexpr int kTaps = 49;  // 7 x 7
 
-template <typename T, int C>
+template <int C>
 __global__ void __launch_bounds__(kThreads)
-    convnext_block_kernel(const T* __restrict__ x, const T* __restrict__ dw_w,
-                          const T* __restrict__ dw_b, const T* __restrict__ ln_w,
-                          const T* __restrict__ ln_b, const T* __restrict__ w1,
-                          const T* __restrict__ b1, const T* __restrict__ w2,
-                          const T* __restrict__ b2, const T* __restrict__ gamma,
-                          T* __restrict__ out, int B, int H, int W, int hidden) {
+    convnext_block_kernel(const float* __restrict__ x, const float* __restrict__ dw_w,
+                          const float* __restrict__ dw_b, const float* __restrict__ ln_w,
+                          const float* __restrict__ ln_b, const float* __restrict__ w1,
+                          const float* __restrict__ b1, const float* __restrict__ w2,
+                          const float* __restrict__ b2, const float* __restrict__ gamma,
+                          float* __restrict__ out, int B, int H, int W, int hidden) {
   using S = Smem<C>;
   static_assert(kTaps * C <= S::SCRATCH, "depthwise weights do not fit");
   extern __shared__ float smem[];
@@ -51,7 +69,7 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int i = threadIdx.x; i < kTaps * C; i += kThreads) {
     const int c = i / kTaps, t = i - c * kTaps;  // dw_w is (C, 1, 7, 7)
-    dws[t * C + c] = to_f<T>(dw_w[i]);
+    dws[t * C + c] = dw_w[i];
   }
   __syncthreads();
 
@@ -76,25 +94,25 @@ __global__ void __launch_bounds__(kThreads)
       for (int dx = 0; dx < 7; ++dx) {
         const int xx = px + dx - 3;
         if (xx < 0 || xx >= W) continue;
-        const T* src = x + ((n * H + yy) * W + xx) * C;
+        const float* src = x + ((n * H + yy) * W + xx) * C;
         const float* wt = dws + (dy * 7 + dx) * C;
 #pragma unroll
         for (int q = 0; q < C / 32; ++q) {
           const int c = lane + 32 * q;
-          v[q] = fmaf(to_f<T>(src[c]), wt[c], v[q]);
+          v[q] = fmaf(src[c], wt[c], v[q]);
         }
       }
     }
 #pragma unroll
-    for (int q = 0; q < C / 32; ++q) v[q] += to_f<T>(dw_b[lane + 32 * q]);
-    layer_norm_row<T, C>(v, ln_w, ln_b, xs_row, lane);
+    for (int q = 0; q < C / 32; ++q) v[q] += dw_b[lane + 32 * q];
+    layer_norm_row<C>(v, ln_w, ln_b, xs_row, lane);
   }
   // mlp_tile's first barrier also retires the reads of dws before the first
   // weight chunk overwrites it; the shortcut is the block input.
-  mlp_tile<T, C>(smem, w1, b1, w2, b2, gamma, x, out, row0, M, hidden);
+  mlp_tile<C>(smem, w1, b1, w2, b2, gamma, x, out, row0, M, hidden);
 }
 
-template <typename T, int C>
+template <int C>
 static cudaError_t launch_block(const void* x, const void* dw_w, const void* dw_b,
                                 const void* ln_w, const void* ln_b, const void* w1,
                                 const void* b1, const void* w2, const void* b2,
@@ -103,16 +121,15 @@ static cudaError_t launch_block(const void* x, const void* dw_w, const void* dw_
   using S = Smem<C>;
   if (hidden <= 0 || hidden % S::J != 0) return cudaErrorInvalidValue;
   const long long M = static_cast<long long>(B) * H * W;
-  return launch_tiles(convnext_block_kernel<T, C>, M, S::TM, S::BYTES, stream,
-                      static_cast<const T*>(x), static_cast<const T*>(dw_w),
-                      static_cast<const T*>(dw_b), static_cast<const T*>(ln_w),
-                      static_cast<const T*>(ln_b), static_cast<const T*>(w1),
-                      static_cast<const T*>(b1), static_cast<const T*>(w2),
-                      static_cast<const T*>(b2), static_cast<const T*>(gamma),
-                      static_cast<T*>(out), B, H, W, hidden);
+  return launch_tiles(convnext_block_kernel<C>, M, S::TM, S::BYTES, stream,
+                      static_cast<const float*>(x), static_cast<const float*>(dw_w),
+                      static_cast<const float*>(dw_b), static_cast<const float*>(ln_w),
+                      static_cast<const float*>(ln_b), static_cast<const float*>(w1),
+                      static_cast<const float*>(b1), static_cast<const float*>(w2),
+                      static_cast<const float*>(b2), static_cast<const float*>(gamma),
+                      static_cast<float*>(out), B, H, W, hidden);
 }
 
-template <typename T>
 static cudaError_t dispatch_block(const void* x, const void* dw_w, const void* dw_b,
                                   const void* ln_w, const void* ln_b, const void* w1,
                                   const void* b1, const void* w2, const void* b2,
@@ -120,17 +137,246 @@ static cudaError_t dispatch_block(const void* x, const void* dw_w, const void* d
                                   int C, int hidden, cudaStream_t stream) {
   switch (C) {
     case 64:
-      return launch_block<T, 64>(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, out, B, H, W, hidden, stream);
+      return launch_block<64>(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, out, B, H, W, hidden, stream);
     case 128:
-      return launch_block<T, 128>(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, out, B, H, W, hidden, stream);
+      return launch_block<128>(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, out, B, H, W, hidden, stream);
     case 256:
-      return launch_block<T, 256>(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, out, B, H, W, hidden, stream);
+      return launch_block<256>(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, out, B, H, W, hidden, stream);
     case 512:
-      return launch_block<T, 512>(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, out, B, H, W, hidden, stream);
+      return launch_block<512>(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, out, B, H, W, hidden, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
+
+// ------------------------- bfloat16: wgmma + TMA -------------------------
+
+namespace hopper {
+
+// How far a tap can reach along each axis, and the run of rows it spans.
+struct Reach {
+  int ry, rx, halo, taps;
+};
+inline __host__ __device__ Reach reach_of(int H, int W) {
+  Reach q;
+  q.ry = H - 1 < 3 ? H - 1 : 3;
+  q.rx = W - 1 < 3 ? W - 1 : 3;
+  q.halo = q.ry * W + q.rx;
+  q.taps = (2 * q.ry + 1) * (2 * q.rx + 1);
+  return q;
+}
+// Bytes of the input tile with its halo and of the taps' weights.
+constexpr int block_extra_bytes(int tm, int c, int halo, int taps) {
+  return (tm + 2 * halo) * c * 2 + taps * c * 4;
+}
+template <int C> constexpr int flagship_stages(int halo, int taps) {
+  return stages_that_fit(Plan<C>::SMEM_LIMIT, Plan<C>::XN_BYTES,
+                         block_extra_bytes(Plan<C>::TM, C, halo, taps));
+}
+// The four shapes of the flagship forward fit with a ring of at least four
+// units (halo and taps as reach_of gives them for side 15, 7, 3, 1).
+static_assert(flagship_stages<64>(48, 49) >= 4 && flagship_stages<128>(24, 49) >= 4 &&
+                  flagship_stages<256>(8, 25) >= 4 && flagship_stages<512>(0, 1) >= 4,
+              "a flagship stage no longer fits the shared memory of a block");
+
+struct TileShortcut {
+  const unsigned char* xin;  // row 0 of the tile proper (behind the halo)
+  int row_bytes;
+  __device__ __forceinline__ uint32_t operator()(int r, int col) const {
+    return *reinterpret_cast<const uint32_t*>(xin + r * row_bytes + col * 2);
+  }
+};
+
+template <int C>
+__global__ void __maxnreg__(Plan<C>::MAX_REGS)
+    convnext_block_bf16_kernel(const __grid_constant__ CUtensorMap map1,
+                               const __grid_constant__ CUtensorMap map2,
+                               const bf16* __restrict__ x, const bf16* __restrict__ dw_w,
+                               const bf16* __restrict__ dw_b, const bf16* __restrict__ ln_w,
+                               const bf16* __restrict__ ln_b, const bf16* __restrict__ b1,
+                               const bf16* __restrict__ b2, const bf16* __restrict__ gamma,
+                               bf16* __restrict__ out, int B, int H, int W, int hidden,
+                               int stages) {
+  using P = Plan<C>;
+  const Reach q = reach_of(H, W);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* xn = base + stages * kUnitBytes;
+  unsigned char* xin = xn + P::XN_BYTES;  // [TM + 2 halo][C], rows row0 - halo ...
+  float* dws = reinterpret_cast<float*>(xin + (P::TM + 2 * q.halo) * P::ROW_BYTES);  // [tap][C]
+  unsigned char* bars = reinterpret_cast<unsigned char*>(dws + q.taps * C);
+  Ring ring;
+  ring.tiles = smem_u32(base);
+  ring.full = smem_u32(bars);
+  ring.empty = ring.full + 8 * kMaxStages;
+  ring.stages = stages;
+  const uint32_t xin_bar = ring.empty + 8 * kMaxStages;
+  init_barriers(ring.full, ring.empty, xin_bar, stages);
+  const long long M = static_cast<long long>(B) * H * W;
+  const long long row0 = static_cast<long long>(blockIdx.x) * P::TM;
+
+  if (threadIdx.x >= kConsumerThreads) {
+    if (threadIdx.x == kConsumerThreads) {
+      // the input tile with its halo, clipped to the rows that exist
+      const long long lo = row0 - q.halo > 0 ? row0 - q.halo : 0;
+      const long long hi = row0 + P::TM + q.halo < M ? row0 + P::TM + q.halo : M;
+      const uint32_t bytes = static_cast<uint32_t>(hi - lo) * P::ROW_BYTES;
+      mbar_expect_tx(xin_bar, bytes);
+      bulk_load_1d(smem_u32(xin) + static_cast<uint32_t>(lo - (row0 - q.halo)) * P::ROW_BYTES,
+                   x + lo * C, bytes, xin_bar);
+      produce_weights<C>(ring, &map1, &map2, hidden);
+    }
+  } else {
+    // the taps' weights, transposed from (C, 1, 7, 7) to [tap][C]
+    const int nx = 2 * q.rx + 1;
+    for (int i = threadIdx.x; i < q.taps * C; i += kConsumerThreads) {
+      const int t = i / C, c = i - t * C;
+      const int ty = t / nx, tx = t - ty * nx;
+      dws[i] = __bfloat162float(dw_w[c * kTaps + (ty + 3 - q.ry) * 7 + tx + 3 - q.rx]);
+    }
+    const int grp = threadIdx.x / P::LPP, l = threadIdx.x % P::LPP;
+    uint4 lw[P::VEC], lb[P::VEC], db[P::VEC];
+#pragma unroll
+    for (int vv = 0; vv < P::VEC; ++vv) {
+      lw[vv] = *reinterpret_cast<const uint4*>(ln_w + (vv * P::LPP + l) * 8);
+      lb[vv] = *reinterpret_cast<const uint4*>(ln_b + (vv * P::LPP + l) * 8);
+      db[vv] = *reinterpret_cast<const uint4*>(dw_b + (vv * P::LPP + l) * 8);
+    }
+    consumer_barrier();       // the taps' weights are in place
+    mbar_wait(xin_bar, 0);    // and so is the input tile
+
+    // Taps outermost, a lane's rows innermost: a tap's weights are loaded
+    // once for RB rows (the taps are bound by shared-memory loads, and the
+    // input values themselves cannot be shared between lanes).
+    const int hw = H * W;
+    constexpr int kRows = P::TM / P::GROUPS;
+    constexpr int RB = kRows < 4 ? kRows : 4;
+    for (int i0 = 0; i0 < kRows; i0 += RB) {
+      float v[RB][P::VEC][8];
+      int py[RB], px[RB];
+      const unsigned char* xrow[RB];
+#pragma unroll
+      for (int i = 0; i < RB; ++i) {
+#pragma unroll
+        for (int vv = 0; vv < P::VEC; ++vv)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[i][vv][e] = 0.f;
+        const int r = grp + (i0 + i) * P::GROUPS;
+        const long long p = row0 + r;
+        const int rem = static_cast<int>(p % hw);
+        py[i] = p < M ? rem / W : -8;  // rows past M: no tap in bounds, never stored
+        px[i] = rem - (rem / W) * W;
+        xrow[i] = xin + (r + q.halo) * P::ROW_BYTES + l * 16;
+      }
+      for (int dy = -q.ry; dy <= q.ry; ++dy) {
+        for (int dx = -q.rx; dx <= q.rx; ++dx) {
+          const float* wt = dws + ((dy + q.ry) * nx + dx + q.rx) * C + l * 8;
+          float4 wa[P::VEC], wb[P::VEC];
+#pragma unroll
+          for (int vv = 0; vv < P::VEC; ++vv) {
+            wa[vv] = *reinterpret_cast<const float4*>(wt + vv * P::LPP * 8);
+            wb[vv] = *reinterpret_cast<const float4*>(wt + vv * P::LPP * 8 + 4);
+          }
+          const int shift = (dy * W + dx) * P::ROW_BYTES;
+#pragma unroll
+          for (int i = 0; i < RB; ++i) {
+            if (static_cast<unsigned>(py[i] + dy) < static_cast<unsigned>(H) &&
+                static_cast<unsigned>(px[i] + dx) < static_cast<unsigned>(W)) {
+#pragma unroll
+              for (int vv = 0; vv < P::VEC; ++vv) {
+                float xv[8];
+                unpack8(*reinterpret_cast<const uint4*>(xrow[i] + shift + vv * P::LPP * 16), xv);
+                float(&a)[8] = v[i][vv];
+                a[0] = fmaf(xv[0], wa[vv].x, a[0]), a[1] = fmaf(xv[1], wa[vv].y, a[1]);
+                a[2] = fmaf(xv[2], wa[vv].z, a[2]), a[3] = fmaf(xv[3], wa[vv].w, a[3]);
+                a[4] = fmaf(xv[4], wb[vv].x, a[4]), a[5] = fmaf(xv[5], wb[vv].y, a[5]);
+                a[6] = fmaf(xv[6], wb[vv].z, a[6]), a[7] = fmaf(xv[7], wb[vv].w, a[7]);
+              }
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RB; ++i) {
+#pragma unroll
+        for (int vv = 0; vv < P::VEC; ++vv) {
+          float bv[8];
+          unpack8(db[vv], bv);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[i][vv][e] += bv[e];
+        }
+        layer_norm_to_xn<C>(v[i], lw, lb, xn, grp + (i0 + i) * P::GROUPS, l);
+      }
+    }
+    fence_proxy_async();  // Xn was written by ordinary stores, wgmma reads it
+    consumer_barrier();
+    consume_mlp<C>(ring, smem_u32(xn), b1, b2, gamma, out, row0, M, hidden,
+                   TileShortcut{xin + q.halo * P::ROW_BYTES, P::ROW_BYTES});
+  }
+}
+
+template <int C>
+static cudaError_t launch_block_bf16(const void* x, const void* dw_w, const void* dw_b,
+                                     const void* ln_w, const void* ln_b, const void* w1,
+                                     const void* b1, const void* w2, const void* b2,
+                                     const void* gamma, void* out, int B, int H, int W,
+                                     int hidden, cudaStream_t stream) {
+  using P = Plan<C>;
+  const long long M = static_cast<long long>(B) * H * W;
+  if (M <= 0) return cudaSuccess;
+  if (hidden <= 0 || hidden % 64 != 0) return cudaErrorInvalidValue;
+  for (const void* p : {x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma,
+                        static_cast<const void*>(out)})
+    if (!aligned16(p)) return cudaErrorMisalignedAddress;
+  const Reach q = reach_of(H, W);
+  const long long extra =
+      (static_cast<long long>(P::TM) + 2LL * q.halo) * P::ROW_BYTES + q.taps * C * 4LL;
+  if (extra > kSmemLimit) return cudaErrorInvalidConfiguration;
+  // a map too wide for the tile, its halo and four ring units is refused
+  const int stages = stages_that_fit(P::SMEM_LIMIT, P::XN_BYTES, static_cast<int>(extra));
+  if (stages < kMinStages) return cudaErrorInvalidConfiguration;
+  const int bytes = smem_bytes(stages, P::XN_BYTES, static_cast<int>(extra));
+  const long long blocks = (M + P::TM - 1) / P::TM;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  CUtensorMap map1, map2;
+  cudaError_t err = weight_map(&map1, w1, hidden, C);
+  if (err != cudaSuccess) return err;
+  err = weight_map(&map2, w2, C, hidden);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(convnext_block_bf16_kernel<C>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  convnext_block_bf16_kernel<C>
+      <<<static_cast<unsigned>(blocks), kBlockThreads, bytes, stream>>>(
+          map1, map2, static_cast<const bf16*>(x), static_cast<const bf16*>(dw_w),
+          static_cast<const bf16*>(dw_b), static_cast<const bf16*>(ln_w),
+          static_cast<const bf16*>(ln_b), static_cast<const bf16*>(b1),
+          static_cast<const bf16*>(b2), static_cast<const bf16*>(gamma),
+          static_cast<bf16*>(out), B, H, W, hidden, stages);
+  return cudaGetLastError();
+}
+
+static cudaError_t dispatch_block_bf16(const void* x, const void* dw_w, const void* dw_b,
+                                       const void* ln_w, const void* ln_b, const void* w1,
+                                       const void* b1, const void* w2, const void* b2,
+                                       const void* gamma, void* out, int B, int H, int W,
+                                       int C, int hidden, cudaStream_t stream) {
+  switch (C) {
+    case 64:
+      return launch_block_bf16<64>(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, out, B, H, W, hidden, stream);
+    case 128:
+      return launch_block_bf16<128>(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, out, B, H, W, hidden, stream);
+    case 256:
+      return launch_block_bf16<256>(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, out, B, H, W, hidden, stream);
+    case 512:
+      return launch_block_bf16<512>(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, out, B, H, W, hidden, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace hopper
 
 }  // namespace btsbot
 
@@ -144,8 +390,8 @@ extern "C" int btsbot_convnext_block(const void* x, const void* dw_w, const void
                                      int C, int hidden, int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return btsbot::dispatch_block<__nv_bfloat16>(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2,
-                                                 b2, gamma, out, B, H, W, C, hidden, s);
-  return btsbot::dispatch_block<float>(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma,
+    return btsbot::hopper::dispatch_block_bf16(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2,
+                                               gamma, out, B, H, W, C, hidden, s);
+  return btsbot::dispatch_block(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma,
                                        out, B, H, W, C, hidden, s);
 }

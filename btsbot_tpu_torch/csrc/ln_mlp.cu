@@ -10,25 +10,35 @@
 // out).  In bf16 on the tensor cores bytes bound it at C = 64 and the
 // operations from C = 128 on; in f32 (no TF32) the operations everywhere.
 // The (M, 4C) hidden activations that an unfused sequence writes and reads
-// back are the traffic this kernel saves.  This first version multiplies on
-// the CUDA cores in float (exact float for float32 storage, float
-// accumulation of bfloat16 values for bfloat16), so its ceiling is the
-// 67 TFLOP/s of float FMA, not the 989 TFLOP/s of the bf16 tensor cores;
-// both products read their operands from shared memory through a 16 x 16
-// thread grid with one float of row padding.  Moving the two products to
-// wgmma with TMA-fed tiles is the next step.
+// back are the traffic this kernel saves.
+//
+// bfloat16 (the serving type) runs the design of hopper_mlp.cuh: both
+// products as wgmma on the tensor cores, weight tiles through a TMA-fed ring
+// that a producer thread keeps ahead of two consumer warpgroups, the GELU
+// chunk kept in registers between the products.  Here the consumers read
+// their rows of h straight from device memory (16 bytes a lane), normalise
+// them into the swizzled Xn tile, and take the shortcut from device memory
+// in the epilogue.  What is left between it and its bound: every block
+// still re-reads W1 and W2 from L2 (TM = 128 rows share one read), the GELU
+// runs on the CUDA cores between the two products of a warpgroup, and the
+// grid is not persistent.  PERF.md has the times.
+//
+// float32 keeps exact float FMAs on the CUDA cores (the 1e-5 contract
+// forbids TF32): ln_mlp_kernel below with block_common.cuh's mlp_tile,
+// ceiling 67 TFLOP/s.
 
 #include "block_common.cuh"
+#include "hopper_mlp.cuh"
 
 namespace btsbot {
 
-template <typename T, int C>
+template <int C>
 __global__ void __launch_bounds__(kThreads)
-    ln_mlp_kernel(const T* __restrict__ h, const T* __restrict__ res,
-                  const T* __restrict__ ln_w, const T* __restrict__ ln_b,
-                  const T* __restrict__ w1, const T* __restrict__ b1,
-                  const T* __restrict__ w2, const T* __restrict__ b2,
-                  const T* __restrict__ gamma, T* __restrict__ out, long long M,
+    ln_mlp_kernel(const float* __restrict__ h, const float* __restrict__ res,
+                  const float* __restrict__ ln_w, const float* __restrict__ ln_b,
+                  const float* __restrict__ w1, const float* __restrict__ b1,
+                  const float* __restrict__ w2, const float* __restrict__ b2,
+                  const float* __restrict__ gamma, float* __restrict__ out, long long M,
                   int hidden) {
   using S = Smem<C>;
   extern __shared__ float smem[];
@@ -45,28 +55,27 @@ __global__ void __launch_bounds__(kThreads)
     }
     float v[C / 32];
 #pragma unroll
-    for (int q = 0; q < C / 32; ++q) v[q] = to_f<T>(h[row * C + lane + 32 * q]);
-    layer_norm_row<T, C>(v, ln_w, ln_b, xs_row, lane);
+    for (int q = 0; q < C / 32; ++q) v[q] = h[row * C + lane + 32 * q];
+    layer_norm_row<C>(v, ln_w, ln_b, xs_row, lane);
   }
-  mlp_tile<T, C>(smem, w1, b1, w2, b2, gamma, res, out, row0, M, hidden);
+  mlp_tile<C>(smem, w1, b1, w2, b2, gamma, res, out, row0, M, hidden);
 }
 
-template <typename T, int C>
+template <int C>
 static cudaError_t launch_ln_mlp(const void* h, const void* res, const void* ln_w,
                                  const void* ln_b, const void* w1, const void* b1,
                                  const void* w2, const void* b2, const void* gamma,
                                  void* out, long long M, int hidden, cudaStream_t stream) {
   using S = Smem<C>;
   if (hidden <= 0 || hidden % S::J != 0) return cudaErrorInvalidValue;
-  return launch_tiles(ln_mlp_kernel<T, C>, M, S::TM, S::BYTES, stream,
-                      static_cast<const T*>(h), static_cast<const T*>(res),
-                      static_cast<const T*>(ln_w), static_cast<const T*>(ln_b),
-                      static_cast<const T*>(w1), static_cast<const T*>(b1),
-                      static_cast<const T*>(w2), static_cast<const T*>(b2),
-                      static_cast<const T*>(gamma), static_cast<T*>(out), M, hidden);
+  return launch_tiles(ln_mlp_kernel<C>, M, S::TM, S::BYTES, stream,
+                      static_cast<const float*>(h), static_cast<const float*>(res),
+                      static_cast<const float*>(ln_w), static_cast<const float*>(ln_b),
+                      static_cast<const float*>(w1), static_cast<const float*>(b1),
+                      static_cast<const float*>(w2), static_cast<const float*>(b2),
+                      static_cast<const float*>(gamma), static_cast<float*>(out), M, hidden);
 }
 
-template <typename T>
 static cudaError_t dispatch_ln_mlp(const void* h, const void* res, const void* ln_w,
                                    const void* ln_b, const void* w1, const void* b1,
                                    const void* w2, const void* b2, const void* gamma,
@@ -74,17 +83,142 @@ static cudaError_t dispatch_ln_mlp(const void* h, const void* res, const void* l
                                    cudaStream_t stream) {
   switch (C) {
     case 64:
-      return launch_ln_mlp<T, 64>(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, hidden, stream);
+      return launch_ln_mlp<64>(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, hidden, stream);
     case 128:
-      return launch_ln_mlp<T, 128>(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, hidden, stream);
+      return launch_ln_mlp<128>(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, hidden, stream);
     case 256:
-      return launch_ln_mlp<T, 256>(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, hidden, stream);
+      return launch_ln_mlp<256>(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, hidden, stream);
     case 512:
-      return launch_ln_mlp<T, 512>(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, hidden, stream);
+      return launch_ln_mlp<512>(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, hidden, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
+
+// ------------------------- bfloat16: wgmma + TMA -------------------------
+
+namespace hopper {
+
+struct GlobalShortcut {
+  const bf16* res;
+  long long row0;
+  int c;
+  __device__ __forceinline__ uint32_t operator()(int r, int col) const {
+    // read-only path: these loads need not wait for the stores between them
+    return __ldg(reinterpret_cast<const uint32_t*>(res + (row0 + r) * c + col));
+  }
+};
+
+template <int C>
+__global__ void __maxnreg__(Plan<C>::MAX_REGS)
+    ln_mlp_bf16_kernel(const __grid_constant__ CUtensorMap map1,
+                       const __grid_constant__ CUtensorMap map2, const bf16* __restrict__ h,
+                       const bf16* __restrict__ res, const bf16* __restrict__ ln_w,
+                       const bf16* __restrict__ ln_b, const bf16* __restrict__ b1,
+                       const bf16* __restrict__ b2, const bf16* __restrict__ gamma,
+                       bf16* __restrict__ out, long long M, int hidden, int stages) {
+  using P = Plan<C>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* xn = base + stages * kUnitBytes;
+  unsigned char* bars = xn + P::XN_BYTES;
+  Ring ring;
+  ring.tiles = smem_u32(base);
+  ring.full = smem_u32(bars);
+  ring.empty = ring.full + 8 * kMaxStages;
+  ring.stages = stages;
+  init_barriers(ring.full, ring.empty, ring.empty + 8 * kMaxStages, stages);
+  const long long row0 = static_cast<long long>(blockIdx.x) * P::TM;
+
+  if (threadIdx.x >= kConsumerThreads) {
+    if (threadIdx.x == kConsumerThreads) produce_weights<C>(ring, &map1, &map2, hidden);
+  } else {
+    const int grp = threadIdx.x / P::LPP, l = threadIdx.x % P::LPP;
+    uint4 lw[P::VEC], lb[P::VEC];
+#pragma unroll
+    for (int vv = 0; vv < P::VEC; ++vv) {
+      lw[vv] = *reinterpret_cast<const uint4*>(ln_w + (vv * P::LPP + l) * 8);
+      lb[vv] = *reinterpret_cast<const uint4*>(ln_b + (vv * P::LPP + l) * 8);
+    }
+    // this lane's share of its rows, all loads in flight together
+    constexpr int kRows = P::TM / P::GROUPS;
+    uint4 hq[kRows][P::VEC];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int vv = 0; vv < P::VEC; ++vv) {
+        const long long row = row0 + grp + i * P::GROUPS;
+        hq[i][vv] = make_uint4(0u, 0u, 0u, 0u);  // rows past M: zeros, never stored
+        if (row < M)
+          hq[i][vv] = *reinterpret_cast<const uint4*>(h + row * C + (vv * P::LPP + l) * 8);
+      }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      float v[P::VEC][8];
+#pragma unroll
+      for (int vv = 0; vv < P::VEC; ++vv) unpack8(hq[i][vv], v[vv]);
+      layer_norm_to_xn<C>(v, lw, lb, xn, grp + i * P::GROUPS, l);
+    }
+    fence_proxy_async();  // Xn was written by ordinary stores, wgmma reads it
+    consumer_barrier();
+    consume_mlp<C>(ring, smem_u32(xn), b1, b2, gamma, out, row0, M, hidden,
+                   GlobalShortcut{res, row0, C});
+  }
+}
+
+template <int C>
+static cudaError_t launch_ln_mlp_bf16(const void* h, const void* res, const void* ln_w,
+                                      const void* ln_b, const void* w1, const void* b1,
+                                      const void* w2, const void* b2, const void* gamma,
+                                      void* out, long long M, int hidden,
+                                      cudaStream_t stream) {
+  using P = Plan<C>;
+  constexpr int kStages = stages_that_fit(P::SMEM_LIMIT, P::XN_BYTES, 0);
+  static_assert(kStages >= kMinStages, "tile exceeds the shared memory of a block");
+  constexpr int kBytes = smem_bytes(kStages, P::XN_BYTES, 0);
+  if (M <= 0) return cudaSuccess;
+  if (hidden <= 0 || hidden % 64 != 0) return cudaErrorInvalidValue;
+  for (const void* p : {h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, static_cast<const void*>(out)})
+    if (!aligned16(p)) return cudaErrorMisalignedAddress;
+  const long long blocks = (M + P::TM - 1) / P::TM;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  CUtensorMap map1, map2;
+  cudaError_t err = weight_map(&map1, w1, hidden, C);
+  if (err != cudaSuccess) return err;
+  err = weight_map(&map2, w2, C, hidden);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(ln_mlp_bf16_kernel<C>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (err != cudaSuccess) return err;
+  ln_mlp_bf16_kernel<C><<<static_cast<unsigned>(blocks), kBlockThreads, kBytes, stream>>>(
+      map1, map2, static_cast<const bf16*>(h), static_cast<const bf16*>(res),
+      static_cast<const bf16*>(ln_w), static_cast<const bf16*>(ln_b),
+      static_cast<const bf16*>(b1), static_cast<const bf16*>(b2),
+      static_cast<const bf16*>(gamma), static_cast<bf16*>(out), M, hidden, kStages);
+  return cudaGetLastError();
+}
+
+static cudaError_t dispatch_ln_mlp_bf16(const void* h, const void* res, const void* ln_w,
+                                        const void* ln_b, const void* w1, const void* b1,
+                                        const void* w2, const void* b2, const void* gamma,
+                                        void* out, long long M, int C, int hidden,
+                                        cudaStream_t stream) {
+  switch (C) {
+    case 64:
+      return launch_ln_mlp_bf16<64>(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, hidden, stream);
+    case 128:
+      return launch_ln_mlp_bf16<128>(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, hidden, stream);
+    case 256:
+      return launch_ln_mlp_bf16<256>(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, hidden, stream);
+    case 512:
+      return launch_ln_mlp_bf16<512>(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, hidden, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace hopper
 
 }  // namespace btsbot
 
@@ -98,8 +232,8 @@ extern "C" int btsbot_ln_mlp(const void* h, const void* res, const void* ln_w,
                              void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return btsbot::dispatch_ln_mlp<__nv_bfloat16>(h, res, ln_w, ln_b, w1, b1, w2, b2,
-                                                  gamma, out, M, C, hidden, s);
-  return btsbot::dispatch_ln_mlp<float>(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out,
+    return btsbot::hopper::dispatch_ln_mlp_bf16(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma,
+                                                out, M, C, hidden, s);
+  return btsbot::dispatch_ln_mlp(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out,
                                         M, C, hidden, s);
 }

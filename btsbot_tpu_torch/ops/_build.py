@@ -50,20 +50,38 @@ _lib: ctypes.CDLL | None = None
 build_info: dict = {}
 
 
-def find_nvcc() -> str:
-    """Path of nvcc: $CUDA_HOME/bin, then PATH, then /usr/local/cuda/bin."""
+def find_cuda_tool(tool: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``):
+    $CUDA_HOME/bin, then PATH, then /usr/local/cuda/bin."""
     candidates = []
     if os.environ.get("CUDA_HOME"):
-        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
-    found = shutil.which("nvcc")
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", tool))
+    found = shutil.which(tool)
     if found:
         candidates.append(found)
-    candidates.append("/usr/local/cuda/bin/nvcc")
+    candidates.append(f"/usr/local/cuda/bin/{tool}")
     for c in candidates:
         if os.path.isfile(c) and os.access(c, os.X_OK):
             return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
-                       "the CUDA kernels cannot be built")
+    raise RuntimeError(f"{tool} not found (set CUDA_HOME or put {tool} on PATH); "
+                       "the CUDA kernels cannot be built or inspected")
+
+
+def sass_opcode_counts(opcode: str) -> dict[str, int]:
+    """How often ``opcode`` occurs in each kernel of the built library
+    (``cuobjdump -sass``), keyed by the kernel's mangled name."""
+    out = subprocess.run([find_cuda_tool("cuobjdump"), "-sass", str(build())],
+                         capture_output=True, text=True, check=True).stdout
+    counts: dict[str, int] = {}
+    name = None
+    for line in out.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            name = line.split(":", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and opcode in line:
+            counts[name] += 1
+    return counts
 
 
 def sources() -> list[Path]:
@@ -88,7 +106,7 @@ def build() -> Path:
     if lib_path.exists() and stamp.exists() and stamp.read_text() == digest:
         build_info.update(seconds=0.0, compiled=False, ptxas="")
         return lib_path
-    nvcc = find_nvcc()
+    nvcc = find_cuda_tool("nvcc")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     tag = f"{digest[:12]}.{os.getpid()}"
@@ -147,11 +165,18 @@ KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_WIDTHS = (64, 128, 256, 512)
 
 
+def _on_card(t) -> bool:
+    """Whether t lies where the kernels run (on its own so that a CPU test
+    can put a stand-in past this check and reach the ones behind it)."""
+    return t.is_cuda
+
+
 def kernel_operands(x, params, name: str) -> list:
     """Validate a kernel's input tensor and bring its parameters to its type;
-    returns the contiguous operands, x first.  Raises on what the kernels
-    do not take."""
-    if not x.is_cuda:
+    returns the operands, x first.  Raises on what the kernels do not take:
+    the TMA descriptors and the 16-byte loads want every operand contiguous
+    and on a 16-byte line, and a quiet copy per launch would hide the cost."""
+    if not _on_card(x):
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got {x.device}")
     if x.dtype not in KERNEL_DTYPES:
         raise TypeError(f"{name}: the kernel takes float32 or bfloat16, "
@@ -160,10 +185,17 @@ def kernel_operands(x, params, name: str) -> list:
         raise ValueError(f"{name}: the kernel takes C in {KERNEL_WIDTHS}, "
                          f"got {x.shape[-1]}")
     ops = [x.contiguous()]
-    for p in params:
+    for i, p in enumerate(params):
         if p.device != x.device:
             raise ValueError(f"{name}: operands on {p.device} and {x.device}")
-        ops.append(p.to(x.dtype).contiguous())
+        if not p.is_contiguous():
+            raise ValueError(f"{name}: operand {i + 1} of shape {tuple(p.shape)} "
+                             f"is not contiguous")
+        ops.append(p.to(x.dtype))
+    for i, t in enumerate(ops):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: operand {i} of shape {tuple(t.shape)} is "
+                             f"not 16-byte aligned")
     return ops
 
 

@@ -61,7 +61,8 @@ def _launch_ln_mlp(h, shortcut, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, gamma):
         raise ValueError(f"fused_ln_mlp: fc1 {tuple(fc1_w.shape)} / fc2 "
                          f"{tuple(fc2_w.shape)} do not fit C={c}")
     ops = _build.kernel_operands(
-        h, (shortcut, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, gamma), "fused_ln_mlp")
+        h, (shortcut.contiguous(), ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, gamma),
+        "fused_ln_mlp")
     out = torch.empty_like(ops[0])
     err = _build.library().btsbot_ln_mlp(
         *[t.data_ptr() for t in ops], out.data_ptr(), m, c, hidden,

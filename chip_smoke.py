@@ -9,11 +9,15 @@ It builds the CUDA kernels from ``btsbot_tpu_torch/csrc`` into
 ``build/kernels/`` and drives the flagship serving path (mm_ConvNeXt,
 convnext_pico, 63×63×3 triplets + 25 metadata features) on the card:
 
-1. setup: the card's name and power limit, the kernel build, TF32 off;
+1. setup: the card's name and power limit, the kernel build (ptxas'
+   registers and spills), a ``cuobjdump -sass`` check that every bfloat16
+   kernel holds ``HGMMA`` (tensor-core) instructions, TF32 off;
 2. each kernel against its plain PyTorch version at the four pico stage
    shapes at batch 3072, in float32 (rtol 1e-4 / atol 1e-5: summation order)
    and bfloat16 (rtol = atol = 3e-2: two bf16 roundings), with CUDA-event
-   times of both and the bound of the work on an H100;
+   times of both and the bound of the work on an H100; then ragged sizes
+   (batch 7, batch 1, and sizes one row short of and one row past a tile
+   edge);
 3. the main path: ``AlertScorer`` (bf16 and f32, batch 3072) on 2×3072+500
    alerts and on the example alerts, and ``AlertStreamScorer`` on 2×3072
    synthetic packets; 12 block-kernel launches per batch; f32 scores within
@@ -21,8 +25,10 @@ convnext_pico, 63×63×3 triplets + 25 metadata features) on the card:
    drop masks identical to the array path's;
 4. ``fast_mm_convnext_logits``: 12 ``fused_ln_mlp`` launches, logits within
    rtol 1e-4 of the module's f32 logits;
-5. a ``{"kernels": [...]}`` line, alerts/s for each scorer (information only);
-6. the card's name and power limit, then as the last line
+5. the bf16 forward at batch 3072 split with CUDA events into its 12
+   block-kernel launches and everything else (information only);
+6. a ``{"kernels": [...]}`` line, alerts/s for each scorer (information only);
+7. the card's name and power limit, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero and prints no result.  So does a host
@@ -49,6 +55,10 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 PEAK_OPS = {"bfloat16": 989e12,  # dense bf16 tensor cores
             "float32": 67e12}    # float32 outside the tensor cores (no TF32)
 PICO_STAGES = [(15, 64, 2), (7, 128, 2), (3, 256, 6), (1, 512, 2)]  # side, C, depth
+TILE_ROWS = {64: 128, 128: 128, 256: 128, 512: 64}  # rows a block of the bf16 kernels
+# one pico forward's 12 launches at batch 3072 in bf16 with the first version
+# of the kernels (float FMAs on the CUDA cores), NVIDIA H100 80GB HBM3, 700 W
+EARLIER_MS = {"convnext_block_fused": 27.5, "fused_ln_mlp": 24.2}
 TOL = {"float32": dict(rtol=1e-4, atol=1e-5), "bfloat16": dict(rtol=3e-2, atol=3e-2)}
 
 META_COLS = [
@@ -126,6 +136,11 @@ def phase_setup(state: dict) -> None:
     for line in info.get("ptxas", "").splitlines():
         if "spill" in line and " 0 bytes spill stores" not in line:
             print(f"  ptxas: {line.strip()}", flush=True)
+    # a build that lost the tensor-core path must not pass
+    hgmma = {k: n for k, n in _build.sass_opcode_counts("HGMMA").items() if "bf16" in k}
+    print(f"  HGMMA instructions in the bf16 kernels: {sorted(hgmma.values())}", flush=True)
+    check(len(hgmma) == 8 and min(hgmma.values()) > 0,
+          "all 8 bf16 kernels (2 kernels x 4 widths) hold HGMMA instructions")
 
 
 # ------------------------------ phase 2 ------------------------------
@@ -154,6 +169,14 @@ def _bound(bytes_moved: float, ops: float, dtype_name: str) -> tuple[float, str]
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _ragged_batches(side: int, tm: int) -> list[int]:
+    """Batch 1, and the smallest batches whose B * side^2 rows end one row
+    short of and one row past an edge of a tile of tm rows."""
+    hw = side * side
+    return [1] + [next(b for b in range(2, 4 * tm) if (b * hw) % tm == want)
+                  for want in (tm - 1, 1)]
 
 
 def phase_kernels(state: dict) -> None:
@@ -222,6 +245,23 @@ def phase_kernels(state: dict) -> None:
                                      **TOL[dname])
                 check(ok, f"both kernels match at a ragged size ({dname}, C={c}, "
                           f"B=7, M={mr})")
+                tm = TILE_ROWS[c]
+                batches = _ragged_batches(side, tm)
+                rows = [1, 3 * tm - 1, 3 * tm + 1]
+                ok = True
+                for b in batches:
+                    xr = x[:b].contiguous()
+                    ok &= torch.allclose(convnext_block_fused(xr, *p).float(),
+                                         convnext_block_reference(xr, *p).float(),
+                                         **TOL[dname])
+                for mr in rows:
+                    ok &= torch.allclose(fused_ln_mlp(h[:mr], res[:mr], *q).float(),
+                                         ln_mlp_reference(h[:mr], res[:mr], *q).float(),
+                                         **TOL[dname])
+                torch.cuda.synchronize()
+                check(ok, f"both kernels match at the tile edges ({dname}, C={c}, block "
+                          f"B={batches}, M={[b * side * side for b in batches]}; "
+                          f"ln_mlp M={rows})")
             del x, p, h, res, got, want
             torch.cuda.empty_cache()
     print("  library_ms: none (no single PyTorch call computes either fused block)",
@@ -407,6 +447,7 @@ def phase_main_path(state: dict) -> None:
           "stream scores match the array path; dropped alerts are NaN")
 
     state["timings"] = timings
+    state["scorer_bf16"] = scorers["bf16"]
     state["throughput"] = {name: sc.throughput() for name, sc in scorers.items()}
 
 
@@ -442,6 +483,53 @@ def phase_fast_path(state: dict) -> None:
 
 # ------------------------------ phase 5 ------------------------------
 
+def phase_forward_split(state: dict) -> None:
+    """The bf16 forward on device-resident inputs, split with CUDA events into
+    the 12 block-kernel launches and everything else (stem, downsample,
+    heads, sigmoid, the gaps between launches)."""
+    import torch
+    from btsbot_tpu_torch.ops import convnext_block as port_block
+
+    sc = state["scorer_bf16"]
+    g = torch.Generator(device="cpu").manual_seed(0)
+    images = torch.randn(BATCH, 63, 63, 3, generator=g).to(DEVICE)
+    meta = torch.randn(BATCH, len(META_COLS), generator=g).to(DEVICE)
+    launch, spans = port_block._launch_block, []
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = launch(*args)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    iters = 10
+    for _ in range(3):
+        sc._score(images, meta)
+    whole = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    port_block._launch_block = timed
+    try:
+        torch.cuda.synchronize()
+        whole[0].record()
+        for _ in range(iters):
+            sc._score(images, meta)
+        whole[1].record()
+        torch.cuda.synchronize()
+    finally:
+        port_block._launch_block = launch
+    total = whole[0].elapsed_time(whole[1]) / iters
+    blocks = sum(a.elapsed_time(b) for a, b in spans) / iters
+    check(len(spans) == 12 * iters, "12 block launches per timed forward")
+    state["forward_split"] = (total, blocks)
+    print(f"  bf16 forward at batch {BATCH}: {total:.3f} ms = 12 block launches "
+          f"{blocks:.3f} ms + everything else {total - blocks:.3f} ms "
+          f"({BATCH / total * 1e3:.0f} alerts/s) on {state['gpu']}", flush=True)
+
+
+# ------------------------------ phase 6 ------------------------------
+
 def _kernel_entry(name, source, replaces, launches, rows):
     """One forward's worth of launches at batch 3072 in bf16 (the serving
     type): each stage's time × its depth, summed over the four stages."""
@@ -457,7 +545,7 @@ def _kernel_entry(name, source, replaces, launches, rows):
             "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": total("bound_ms"),
             "bound_by": "operations" if t_ops > t_bytes else "bytes",
-            "library_ms": None,
+            "library_ms": None, "earlier_ms": EARLIER_MS[name],
             "per": "one pico forward at batch 3072, bfloat16 (12 launches)"}
 
 
@@ -483,7 +571,7 @@ def phase_report(state: dict) -> None:
 
 PHASES = [("setup", phase_setup), ("kernels", phase_kernels),
           ("main path", phase_main_path), ("fast path", phase_fast_path),
-          ("report", phase_report)]
+          ("forward split", phase_forward_split), ("report", phase_report)]
 
 
 def main() -> int:
