@@ -33,7 +33,12 @@
 // outside a pixel's sample is tested away, never multiplied), and the
 // epilogue takes the shortcut from the
 // same tile.  The taps' weights sit beside it as float, [tap][C], only the
-// (2 ry + 1)(2 rx + 1) taps that can be in bounds.  What is left between it
+// (2 ry + 1)(2 rx + 1) taps that can be in bounds.  A map so wide that the
+// tile with its halo leaves no room for four ring units (C = 512 at 7x7,
+// C = 256 at 14x14) runs the second instantiation of the kernel (kTile =
+// false): no input tile, the taps and the shortcut read x from device memory
+// (through L2, as the first version of the kernel did), everything else the
+// same, so every (H, W) is taken at every width.  What is left between it
 // and its bound: the taps and the GELU run on the CUDA cores and are not
 // overlapped with the products of the same warpgroup (at C <= 128 they take
 // most of a block's time), each block re-reads W1 and W2 from L2,
@@ -165,29 +170,40 @@ inline __host__ __device__ Reach reach_of(int H, int W) {
   q.taps = (2 * q.ry + 1) * (2 * q.rx + 1);
   return q;
 }
-// Bytes of the input tile with its halo and of the taps' weights.
-constexpr int block_extra_bytes(int tm, int c, int halo, int taps) {
-  return (tm + 2 * halo) * c * 2 + taps * c * 4;
+// Bytes of the input tile with its halo, and of the taps' weights.
+constexpr long long tile_bytes(int tm, int c, int halo) {
+  return (static_cast<long long>(tm) + 2LL * halo) * c * 2;
 }
-template <int C> constexpr int flagship_stages(int halo, int taps) {
-  return stages_that_fit(Plan<C>::SMEM_LIMIT, Plan<C>::XN_BYTES,
-                         block_extra_bytes(Plan<C>::TM, C, halo, taps));
+constexpr int taps_bytes(int c, int taps) { return taps * c * 4; }
+// Ring stages beside the input tile (0: the tile does not fit), and with
+// the taps' weights alone.
+template <int C> constexpr int tiled_stages(int halo, int taps) {
+  return tile_bytes(Plan<C>::TM, C, halo) > kSmemLimit
+             ? 0
+             : stages_that_fit(Plan<C>::SMEM_LIMIT, Plan<C>::XN_BYTES,
+                               static_cast<int>(tile_bytes(Plan<C>::TM, C, halo)) +
+                                   taps_bytes(C, taps));
 }
-// The four shapes of the flagship forward fit with a ring of at least four
-// units (halo and taps as reach_of gives them for side 15, 7, 3, 1).
-static_assert(flagship_stages<64>(48, 49) >= 4 && flagship_stages<128>(24, 49) >= 4 &&
-                  flagship_stages<256>(8, 25) >= 4 && flagship_stages<512>(0, 1) >= 4,
+template <int C> constexpr int untiled_stages(int taps) {
+  return stages_that_fit(Plan<C>::SMEM_LIMIT, Plan<C>::XN_BYTES, taps_bytes(C, taps));
+}
+// The four shapes of the flagship forward keep their input tile in shared
+// memory (halo and taps as reach_of gives them for side 15, 7, 3, 1).
+static_assert(tiled_stages<64>(48, 49) >= kMinStages && tiled_stages<128>(24, 49) >= kMinStages &&
+                  tiled_stages<256>(8, 25) >= kMinStages && tiled_stages<512>(0, 1) >= kMinStages,
               "a flagship stage no longer fits the shared memory of a block");
 
+// The shortcut of tile row r: from the input tile in shared memory, or
+// (kTile = false) from x itself.
 struct TileShortcut {
-  const unsigned char* xin;  // row 0 of the tile proper (behind the halo)
+  const unsigned char* xin;  // pixel row0: row 0 of the tile proper (behind the halo)
   int row_bytes;
   __device__ __forceinline__ uint32_t operator()(int r, int col) const {
     return *reinterpret_cast<const uint32_t*>(xin + r * row_bytes + col * 2);
   }
 };
 
-template <int C>
+template <int C, bool kTile>
 __global__ void __maxnreg__(Plan<C>::MAX_REGS)
     convnext_block_bf16_kernel(const __grid_constant__ CUtensorMap map1,
                                const __grid_constant__ CUtensorMap map2,
@@ -204,7 +220,8 @@ __global__ void __maxnreg__(Plan<C>::MAX_REGS)
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   unsigned char* xn = base + stages * kUnitBytes;
   unsigned char* xin = xn + P::XN_BYTES;  // [TM + 2 halo][C], rows row0 - halo ...
-  float* dws = reinterpret_cast<float*>(xin + (P::TM + 2 * q.halo) * P::ROW_BYTES);  // [tap][C]
+  const int tile_rows = kTile ? P::TM + 2 * q.halo : 0;
+  float* dws = reinterpret_cast<float*>(xin + tile_rows * P::ROW_BYTES);  // [tap][C]
   unsigned char* bars = reinterpret_cast<unsigned char*>(dws + q.taps * C);
   Ring ring;
   ring.tiles = smem_u32(base);
@@ -218,13 +235,15 @@ __global__ void __maxnreg__(Plan<C>::MAX_REGS)
 
   if (threadIdx.x >= kConsumerThreads) {
     if (threadIdx.x == kConsumerThreads) {
-      // the input tile with its halo, clipped to the rows that exist
-      const long long lo = row0 - q.halo > 0 ? row0 - q.halo : 0;
-      const long long hi = row0 + P::TM + q.halo < M ? row0 + P::TM + q.halo : M;
-      const uint32_t bytes = static_cast<uint32_t>(hi - lo) * P::ROW_BYTES;
-      mbar_expect_tx(xin_bar, bytes);
-      bulk_load_1d(smem_u32(xin) + static_cast<uint32_t>(lo - (row0 - q.halo)) * P::ROW_BYTES,
-                   x + lo * C, bytes, xin_bar);
+      if constexpr (kTile) {
+        // the input tile with its halo, clipped to the rows that exist
+        const long long lo = row0 - q.halo > 0 ? row0 - q.halo : 0;
+        const long long hi = row0 + P::TM + q.halo < M ? row0 + P::TM + q.halo : M;
+        const uint32_t bytes = static_cast<uint32_t>(hi - lo) * P::ROW_BYTES;
+        mbar_expect_tx(xin_bar, bytes);
+        bulk_load_1d(smem_u32(xin) + static_cast<uint32_t>(lo - (row0 - q.halo)) * P::ROW_BYTES,
+                     x + lo * C, bytes, xin_bar);
+      }
       produce_weights<C>(ring, &map1, &map2, hidden);
     }
   } else {
@@ -243,8 +262,12 @@ __global__ void __maxnreg__(Plan<C>::MAX_REGS)
       lb[vv] = *reinterpret_cast<const uint4*>(ln_b + (vv * P::LPP + l) * 8);
       db[vv] = *reinterpret_cast<const uint4*>(dw_b + (vv * P::LPP + l) * 8);
     }
-    consumer_barrier();       // the taps' weights are in place
-    mbar_wait(xin_bar, 0);    // and so is the input tile
+    consumer_barrier();                      // the taps' weights are in place
+    if constexpr (kTile) mbar_wait(xin_bar, 0);  // and so is the input tile
+    // pixel row0 of the input: in the tile, or in x itself (a tap in bounds
+    // of its sample is a row of x, so nothing else is ever read)
+    const unsigned char* xc = xin + q.halo * P::ROW_BYTES;
+    if constexpr (!kTile) xc = reinterpret_cast<const unsigned char*>(x + row0 * C);
 
     // Taps outermost, a lane's rows innermost: a tap's weights are loaded
     // once for RB rows (the taps are bound by shared-memory loads, and the
@@ -267,7 +290,7 @@ __global__ void __maxnreg__(Plan<C>::MAX_REGS)
         const int rem = static_cast<int>(p % hw);
         py[i] = p < M ? rem / W : -8;  // rows past M: no tap in bounds, never stored
         px[i] = rem - (rem / W) * W;
-        xrow[i] = xin + (r + q.halo) * P::ROW_BYTES + l * 16;
+        xrow[i] = xc + r * P::ROW_BYTES + l * 16;
       }
       for (int dy = -q.ry; dy <= q.ry; ++dy) {
         for (int dx = -q.rx; dx <= q.rx; ++dx) {
@@ -312,7 +335,7 @@ __global__ void __maxnreg__(Plan<C>::MAX_REGS)
     fence_proxy_async();  // Xn was written by ordinary stores, wgmma reads it
     consumer_barrier();
     consume_mlp<C>(ring, smem_u32(xn), b1, b2, gamma, out, row0, M, hidden,
-                   TileShortcut{xin + q.halo * P::ROW_BYTES, P::ROW_BYTES});
+                   TileShortcut{xc, P::ROW_BYTES});
   }
 }
 
@@ -329,14 +352,15 @@ static cudaError_t launch_block_bf16(const void* x, const void* dw_w, const void
   for (const void* p : {x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma,
                         static_cast<const void*>(out)})
     if (!aligned16(p)) return cudaErrorMisalignedAddress;
+  // every map fits without the input tile, whatever H and W are
+  static_assert(untiled_stages<C>(kTaps) >= kMinStages, "the taps' weights do not fit");
   const Reach q = reach_of(H, W);
-  const long long extra =
-      (static_cast<long long>(P::TM) + 2LL * q.halo) * P::ROW_BYTES + q.taps * C * 4LL;
-  if (extra > kSmemLimit) return cudaErrorInvalidConfiguration;
-  // a map too wide for the tile, its halo and four ring units is refused
-  const int stages = stages_that_fit(P::SMEM_LIMIT, P::XN_BYTES, static_cast<int>(extra));
-  if (stages < kMinStages) return cudaErrorInvalidConfiguration;
-  const int bytes = smem_bytes(stages, P::XN_BYTES, static_cast<int>(extra));
+  int stages = tiled_stages<C>(q.halo, q.taps);
+  const bool tiled = stages >= kMinStages;
+  if (!tiled) stages = untiled_stages<C>(q.taps);
+  const int extra =
+      taps_bytes(C, q.taps) + (tiled ? static_cast<int>(tile_bytes(P::TM, C, q.halo)) : 0);
+  const int bytes = smem_bytes(stages, P::XN_BYTES, extra);
   const long long blocks = (M + P::TM - 1) / P::TM;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   CUtensorMap map1, map2;
@@ -344,16 +368,16 @@ static cudaError_t launch_block_bf16(const void* x, const void* dw_w, const void
   if (err != cudaSuccess) return err;
   err = weight_map(&map2, w2, C, hidden);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(convnext_block_bf16_kernel<C>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const auto kernel =
+      tiled ? convnext_block_bf16_kernel<C, true> : convnext_block_bf16_kernel<C, false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  convnext_block_bf16_kernel<C>
-      <<<static_cast<unsigned>(blocks), kBlockThreads, bytes, stream>>>(
-          map1, map2, static_cast<const bf16*>(x), static_cast<const bf16*>(dw_w),
-          static_cast<const bf16*>(dw_b), static_cast<const bf16*>(ln_w),
-          static_cast<const bf16*>(ln_b), static_cast<const bf16*>(b1),
-          static_cast<const bf16*>(b2), static_cast<const bf16*>(gamma),
-          static_cast<bf16*>(out), B, H, W, hidden, stages);
+  kernel<<<static_cast<unsigned>(blocks), kBlockThreads, bytes, stream>>>(
+      map1, map2, static_cast<const bf16*>(x), static_cast<const bf16*>(dw_w),
+      static_cast<const bf16*>(dw_b), static_cast<const bf16*>(ln_w),
+      static_cast<const bf16*>(ln_b), static_cast<const bf16*>(b1),
+      static_cast<const bf16*>(b2), static_cast<const bf16*>(gamma),
+      static_cast<bf16*>(out), B, H, W, hidden, stages);
   return cudaGetLastError();
 }
 
@@ -379,6 +403,34 @@ static cudaError_t dispatch_block_bf16(const void* x, const void* dw_w, const vo
 }  // namespace hopper
 
 }  // namespace btsbot
+
+// Rows of the flattened (B*H*W) index that one block of the bfloat16 kernels
+// (both of them) takes at width C; 0 for a width they do not take.
+extern "C" int btsbot_tile_rows(int C) {
+  using namespace btsbot::hopper;
+  switch (C) {
+    case 64: return Plan<64>::TM;
+    case 128: return Plan<128>::TM;
+    case 256: return Plan<256>::TM;
+    case 512: return Plan<512>::TM;
+    default: return 0;
+  }
+}
+
+// Whether the bfloat16 block kernel keeps the input tile of an (H, W) map in
+// shared memory at width C (1), reads x from device memory (0), or does not
+// take the width (-1).
+extern "C" int btsbot_block_tiles_input(int C, int H, int W) {
+  using namespace btsbot::hopper;
+  const Reach q = reach_of(H, W);
+  switch (C) {
+    case 64: return tiled_stages<64>(q.halo, q.taps) >= kMinStages;
+    case 128: return tiled_stages<128>(q.halo, q.taps) >= kMinStages;
+    case 256: return tiled_stages<256>(q.halo, q.taps) >= kMinStages;
+    case 512: return tiled_stages<512>(q.halo, q.taps) >= kMinStages;
+    default: return -1;
+  }
+}
 
 // x and out (B, H, W, C) contiguous, weights in the module layouts, all of
 // one type (is_bf16: 0 float, 1 bfloat16), on one card.  Launches on

@@ -9,7 +9,8 @@
 // (one thread of it starts every copy).  The ninth warp caps a thread at 168
 // registers (three warps on one of the SM's four sub-partitions): enough up
 // to C = 128; at C >= 256 (a 128-float accumulator) ptxas spills about 110
-// words a thread.  Measured alternatives (PERF.md): setmaxnreg with a
+// words a thread and notes (C7512) that it serialises the wgmma there for
+// want of registers.  Measured alternatives (PERF.md): setmaxnreg with a
 // producer warpgroup is not taken up by ptxas here, and a block of exactly
 // two warpgroups whose thread 0 starts the copies between its own products
 // has no spill but lets the ring run dry.
@@ -46,8 +47,13 @@
 //
 // Rounding points are those of the first version: LN statistics in float,
 // bf16 after the normalisation, after scale, after shift, after each
-// product, after each bias, after GELU (tanh form; tanh.approx.f32, whose
-// error is below a bf16 half-ulp), after gamma, residual add in bf16.
+// product, after each bias, after GELU, after gamma, residual add in bf16.
+// One piece of arithmetic between them is not the first version's: GELU's
+// tanh is tanh.approx.f32 (relative error about 2^-11, under the bf16
+// half-ulp) where the first version called tanhf, so a single result can
+// land one bf16 ulp away from the first version's.  tanhf costs 11-29 % of a
+// launch here (PERF.md): GELU sits between the two products of the same
+// warpgroup and nothing hides it.
 #pragma once
 
 #include <cuda.h>

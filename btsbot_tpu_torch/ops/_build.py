@@ -43,6 +43,11 @@ _SIGNATURES = {
     # x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, out, B, H, W, C,
     # hidden, is_bf16, stream
     "btsbot_convnext_block": [_P] * 11 + [ctypes.c_int] * 6 + [_P],
+    # C -> rows of the flattened index a block of the bf16 kernels takes
+    "btsbot_tile_rows": [ctypes.c_int],
+    # C, H, W -> 1 if the bf16 block kernel keeps the input tile of such a
+    # map in shared memory, 0 if it reads x from device memory
+    "btsbot_block_tiles_input": [ctypes.c_int] * 3,
 }
 
 _lock = threading.Lock()
@@ -165,18 +170,12 @@ KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_WIDTHS = (64, 128, 256, 512)
 
 
-def _on_card(t) -> bool:
-    """Whether t lies where the kernels run (on its own so that a CPU test
-    can put a stand-in past this check and reach the ones behind it)."""
-    return t.is_cuda
-
-
 def kernel_operands(x, params, name: str) -> list:
     """Validate a kernel's input tensor and bring its parameters to its type;
     returns the operands, x first.  Raises on what the kernels do not take:
     the TMA descriptors and the 16-byte loads want every operand contiguous
     and on a 16-byte line, and a quiet copy per launch would hide the cost."""
-    if not _on_card(x):
+    if not x.is_cuda:
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got {x.device}")
     if x.dtype not in KERNEL_DTYPES:
         raise TypeError(f"{name}: the kernel takes float32 or bfloat16, "
