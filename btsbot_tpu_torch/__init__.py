@@ -5,7 +5,9 @@ imports nothing of it (nor jax or flax) and holds its own copies of what it
 needs.  The serving path for mm_ConvNeXt runs here end to end: packet decode
 (``native``), ingest (``ops.preprocess``), the model forward with every
 ConvNeXt block in a hand-written CUDA kernel (``ops.convnext_block``,
-``ops.ln_mlp``), and the scorers (``engine.serve``).
+``ops.ln_mlp``), and the scorers (``engine.serve``).  So does its training:
+``engine.train.run_training`` and ``python -m btsbot_tpu_torch.cli.train``,
+with the block kernel in every training and evaluation forward.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card and without that request they raise.
@@ -34,6 +36,9 @@ def __getattr__(name):
     if name == "state_dict_from_jax":
         from .interop.weights import state_dict_from_jax
         return state_dict_from_jax
+    if name == "run_training":
+        from .engine.train import run_training
+        return run_training
     raise AttributeError(name)
 
 
@@ -50,4 +55,5 @@ __all__ = [
     "verify_serving_parity",
     "build_model",
     "state_dict_from_jax",
+    "run_training",
 ]

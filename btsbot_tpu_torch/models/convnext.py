@@ -7,7 +7,12 @@ Same architecture as the JAX package (timm ConvNeXt-v1):
 * block: depthwise Conv 7×7 (SAME) → LayerNorm → Linear(4·dim) → GELU →
   Linear(dim) → layer-scale γ (init 1e-6) → residual.  The block's forward
   is ``ops.convnext_block.convnext_block_fused``: the CUDA kernel on the
-  card, its plain version on the CPU.
+  card, its plain version on the CPU; in training its backward recomputes
+  the plain version.
+
+The images' type is the compute type: the stem, downsample and head layers
+(``models.common``) cast float32 parameters to it, as the block kernel
+does, so a float32 model trains with a bfloat16 forward.
 
 Activations stay channels-last (NHWC) as in the JAX package; the convs see
 an NCHW view of the same memory.  Module and parameter names are the
@@ -32,7 +37,7 @@ import torch
 from torch import nn
 
 from ..ops.convnext_block import convnext_block_fused, convnext_block_reference
-from .common import CombinedHead, MetadataBranch, check_inputs
+from .common import CombinedHead, Conv2d, LayerNorm, MetadataBranch, check_inputs
 
 # depths / dims for the timm ConvNeXt model names used by BTSbot checkpoints.
 CONVNEXT_CONFIGS: dict[str, dict] = {
@@ -108,8 +113,8 @@ class ConvNeXtStage(nn.Module):
     def __init__(self, in_dim: int, dim: int, depth: int, downsample: bool):
         super().__init__()
         self.downsample = nn.Sequential(
-            nn.LayerNorm(in_dim, eps=1e-6),
-            nn.Conv2d(in_dim, dim, 2, stride=2),
+            LayerNorm(in_dim, eps=1e-6),
+            Conv2d(in_dim, dim, 2, stride=2),
         ) if downsample else None
         self.blocks = nn.ModuleList(ConvNeXtBlock(dim) for _ in range(depth))
 
@@ -136,12 +141,12 @@ class ConvNeXtBackbone(nn.Module):
                  dims: Sequence[int] = (64, 128, 256, 512),
                  head_norm: bool = False):
         super().__init__()
-        self.stem = nn.Sequential(nn.Conv2d(3, dims[0], 4, stride=4),
-                                  nn.LayerNorm(dims[0], eps=1e-6))
+        self.stem = nn.Sequential(Conv2d(3, dims[0], 4, stride=4),
+                                  LayerNorm(dims[0], eps=1e-6))
         self.stages = nn.ModuleList(
             ConvNeXtStage(dims[max(s - 1, 0)], dims[s], depths[s], s > 0)
             for s in range(len(depths)))
-        self.head = nn.Sequential(GlobalAvgPool(), nn.LayerNorm(dims[-1], eps=1e-6),
+        self.head = nn.Sequential(GlobalAvgPool(), LayerNorm(dims[-1], eps=1e-6),
                                   nn.Flatten()) if head_norm else nn.Flatten()
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
@@ -183,8 +188,10 @@ class MmConvNeXt(nn.Module):
 
     def forward(self, image_input=None, metadata_input=None,
                 plain: bool = False) -> torch.Tensor:
-        """Logits (N, 1) from NHWC images and (N, n_meta) metadata."""
+        """Logits (N, 1) from NHWC images and (N, n_meta) metadata.  The
+        images' type is the compute type: float32 parameters are cast to it
+        at use, and the metadata BatchNorm's float32 output too."""
         check_inputs("mm_ConvNeXt", image_input, metadata_input)
         x = self.convnext_backbone(image_input, plain)
-        meta = self.metadata_branch(metadata_input)
+        meta = self.metadata_branch(metadata_input, image_input.dtype)
         return self.combined_head(torch.cat([x, meta], dim=1))

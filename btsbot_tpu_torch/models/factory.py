@@ -28,7 +28,8 @@ _NOT_PORTED = {
 def build_model(config, dtype=torch.float32, device=None, seed: int = 0):
     """Construct the model for a config in eval mode, initialised by torch's
     module defaults from ``seed`` (γ = 1e-6), with parameters in ``dtype``
-    on ``device`` (default: the CUDA card; raises without one)."""
+    on ``device`` (default: the CUDA card; raises without one).  The train
+    step puts it in train mode itself (engine.steps)."""
     if not isinstance(config, Config):
         config = normalize_config(config)
     dev = resolve_device(device)

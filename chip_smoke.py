@@ -29,8 +29,20 @@ convnext_pico, 63×63×3 triplets + 25 metadata features) on the card:
    rtol 1e-4 of the module's f32 logits;
 5. the bf16 forward at batch 3072 split with CUDA events into its 12
    block-kernel launches and everything else (information only);
-6. a ``{"kernels": [...]}`` line, alerts/s for each scorer (information only);
-7. the card's name and power limit, then as the last line
+6. training: a synthetic split in the reference's file layout (4,096 train
+   and 1,024 val alerts); one float32 train step through the kernel against
+   one through the plain blocks (loss rtol 1e-6, every gradient within
+   1e-4 of its largest entry, 12 launches); ``cli.train`` for 2 epochs at
+   batch 64, then resumed for a third, with 12 block-kernel launches per
+   train step and per eval batch, finite losses, the JAX package's
+   ``report.json`` keys, and ``best_model.pth`` scoring the val split
+   within 1e-6 of the trainer's best epoch; one bfloat16 step's loss within
+   1e-2 of float32's; steps/s at batch 64 and 1,024 in both types, one
+   step split into its 12 block launches, the recompute backward and the
+   optimizer, and a ``torch.profiler`` table of kernel time by name with the
+   device's busy share (information only);
+7. a ``{"kernels": [...]}`` line, alerts/s for each scorer (information only);
+8. the card's name and power limit, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero and prints no result.  So does a host
@@ -46,6 +58,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -577,6 +590,291 @@ def phase_forward_split(state: dict) -> None:
 
 # ------------------------------ phase 6 ------------------------------
 
+TRAIN_ALERTS, VAL_ALERTS, TRAIN_BATCH = 4096, 1024, 64
+# report.json as the JAX package writes it (metrics/report.py), val summary
+# with candidates (metrics/diagnostics.py)
+REPORT_KEYS = {"Run time stamp", "Run name", "Training history", "train_config",
+               "val_summary"}
+HISTORY_KEYS = {"train_loss", "train_accuracy", "val_loss", "val_accuracy"}
+SUMMARY_KEYS = {"roc_auc", "bts_acc", "notbts_acc", "bal_acc", "alert_precision",
+                "alert_recall", "accuracy", "confusion", "policy_performance"}
+
+
+def _write_split(data_dir: str, split: str, n: int, seed: int) -> None:
+    """``{split}_cand_v12_N100.csv`` + ``{split}_triplets_v12_N100.npy``: about
+    30 % positives, each with a blob in all three cutouts; L2-normalised
+    cutouts; the 25 flagship metadata columns (magpsf 17-19.5); three alerts
+    an object."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    labels = (rng.random(n) < 0.3).astype(np.int64)
+    trips = rng.normal(size=(n, 63, 63, 3)).astype(np.float32)
+    trips[labels == 1, 28:35, 28:35, :] += 2.0
+    trips /= np.sqrt((trips ** 2).sum(axis=(1, 2), keepdims=True))
+    np.save(os.path.join(data_dir, f"{split}_triplets_v12_N100.npy"), trips)
+    meta = rng.normal(size=(n, len(META_COLS))) + 0.5 * labels[:, None]
+    meta[:, META_COLS.index("magpsf")] = 17 + 2.5 * rng.random(n)
+    with open(os.path.join(data_dir, f"{split}_cand_v12_N100.csv"), "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["objectId", "candid", "jd", "label"] + META_COLS)
+        for i in range(n):
+            w.writerow([f"ZTF{seed}{i // 3:07d}", 10 ** 12 + i, 2459300.5 + i / 7,
+                        labels[i]] + [f"{v:.7g}" for v in meta[i]])
+
+
+def _train_config(**over) -> dict:
+    return {**FLAGSHIP_CONFIG, "pretrained": False, "batch_size": TRAIN_BATCH, **over}
+
+
+def _fresh_state(config, weights):
+    """(normalised config, train state) of a fresh flagship holding ``weights``."""
+    from btsbot_tpu_torch.core.config import normalize_config
+    from btsbot_tpu_torch.engine.state import create_train_state
+    from btsbot_tpu_torch.models.factory import build_model
+
+    config = normalize_config(config)
+    model = build_model(config, device=DEVICE)
+    model.load_state_dict(weights)
+    return config, create_train_state(config, model,
+                                      steps_per_epoch=TRAIN_ALERTS // TRAIN_BATCH)
+
+
+def _one_step(config, weights, batch, plain: bool = False):
+    """One train step of a fresh model holding ``weights`` on ``batch``;
+    (loss, {name: grad}, block-kernel launches)."""
+    import torch
+    from btsbot_tpu_torch.engine.steps import make_train_step
+    from btsbot_tpu_torch.ops.convnext_block import convnext_block_fused
+
+    config, st = _fresh_state(config, weights)
+    torch.cuda.synchronize()
+    convnext_block_fused.launches = 0
+    m = make_train_step(config, plain=plain)(st, *batch)
+    torch.cuda.synchronize()
+    grads = {n: p.grad.detach().clone() for n, p in st.model.named_parameters()}
+    return m["loss"].item(), grads, convnext_block_fused.launches
+
+
+def _step_split(config, weights, batch, iters: int = 10):
+    """ms of one train step = 12 block launches + the recompute backward of
+    the 12 blocks + the optimizer + everything else, with CUDA events."""
+    import torch
+    from btsbot_tpu_torch.engine.steps import make_train_step
+    from btsbot_tpu_torch.ops import convnext_block as port_block
+
+    config, st = _fresh_state(config, weights)
+    step = make_train_step(config)
+    spans = {"launch": [], "backward": [], "optimizer": []}
+
+    def timed(kind, fn):
+        def wrapper(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            spans[kind].append((start, end))
+            return out
+        return wrapper
+
+    for _ in range(3):
+        step(st, *batch)
+    launch, backward, opt_step = (port_block._launch_block, port_block.recompute_backward,
+                                  st.optimizer.step)
+    port_block._launch_block = timed("launch", launch)
+    port_block.recompute_backward = timed("backward", backward)
+    st.optimizer.step = timed("optimizer", opt_step)
+    whole = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    try:
+        torch.cuda.synchronize()
+        whole[0].record()
+        for _ in range(iters):
+            step(st, *batch)
+        whole[1].record()
+        torch.cuda.synchronize()
+    finally:
+        port_block._launch_block, port_block.recompute_backward = launch, backward
+        del st.optimizer.step
+    check(len(spans["launch"]) == len(spans["backward"]) == 12 * iters,
+          "12 block launches and 12 recompute backwards per timed step")
+    out = {k: sum(a.elapsed_time(b) for a, b in v) / iters for k, v in spans.items()}
+    out["step"] = whole[0].elapsed_time(whole[1]) / iters
+    out["rest"] = out["step"] - out["launch"] - out["backward"] - out["optimizer"]
+    return out
+
+
+def _profile_steps(config, weights, batch, iters: int = 5) -> None:
+    """Kernel time by name over ``iters`` train steps with ``torch.profiler``,
+    and the device's busy share of the wall time (information only)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from btsbot_tpu_torch.engine.steps import make_train_step
+
+    config, st = _fresh_state(config, weights)
+    step = make_train_step(config)
+    for _ in range(3):
+        step(st, *batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            step(st, *batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    # kernels only: a user annotation (``Optimizer.step#AdamW.step``) also
+    # shows on the device timeline, spanning kernels counted on their own
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3 / iters
+    if not kernels:
+        print("  profiler: no device time recorded; busy share not measured", flush=True)
+        return
+    print(f"  profile, batch {batch[0].shape[0]} {config.get('compute_dtype', 'float32')}: "
+          f"{wall_ms:.3f} ms a step (host clock, profiler on), device busy "
+          f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f} %), "
+          f"{sum(e.count for e in kernels) / iters:.0f} kernels a step", flush=True)
+    for e in sorted(kernels, key=lambda e: e.device_time_total, reverse=True)[:10]:
+        print(f"    {e.device_time_total / 1e3 / iters:8.3f} ms  x{e.count / iters:4.0f}  "
+              f"{e.key[:110]}", flush=True)
+
+
+def phase_train(state: dict) -> None:
+    import numpy as np
+    import torch
+    from btsbot_tpu_torch.cli.train import main as train_cli
+    from btsbot_tpu_torch.core.config import normalize_config
+    from btsbot_tpu_torch.data.dataset import load_split
+    from btsbot_tpu_torch.engine.checkpoint import load_model_checkpoint
+    from btsbot_tpu_torch.engine.eval import predict_dataset
+    from btsbot_tpu_torch.engine.steps import make_train_step
+    from btsbot_tpu_torch.models.factory import build_model
+    from btsbot_tpu_torch.ops.convnext_block import convnext_block_fused
+
+    weights = state["weights"]
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        data_dir, out_root = os.path.join(tmp, "data"), os.path.join(tmp, "models")
+        os.makedirs(data_dir)
+        t0 = time.perf_counter()
+        _write_split(data_dir, "train", TRAIN_ALERTS, seed=11)
+        _write_split(data_dir, "val", VAL_ALERTS, seed=12)
+        print(f"  wrote {TRAIN_ALERTS} + {VAL_ALERTS} alerts in the reference's layout "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        config = normalize_config(_train_config(epochs=2))
+        train = load_split(config, "train", data_dir)
+        val = load_split(config, "val", data_dir)
+
+        def batch_of(n):
+            return (torch.from_numpy(train.images[:n]).to(DEVICE),
+                    torch.from_numpy(train.metadata[:n]).to(DEVICE),
+                    torch.from_numpy(train.labels[:n]).to(DEVICE), train.pos_weight)
+
+        # ---- one float32 step through the kernel and through the plain blocks
+        batch = batch_of(TRAIN_BATCH)
+        loss_k, grads_k, n_k = _one_step(config, weights, batch)
+        loss_p, grads_p, n_p = _one_step(config, weights, batch, plain=True)
+        rel = abs(loss_k - loss_p) / abs(loss_p)
+        worst, worst_name = max(
+            ((grads_k[n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30), n)
+            for n, g in grads_p.items())
+        print(f"  one f32 step: loss {loss_k:.8f} kernel / {loss_p:.8f} plain "
+              f"(rel {rel:.3g}); worst gradient max|d|/max|g| = {worst:.3g} ({worst_name})",
+              flush=True)
+        check(n_k == 12 and n_p == 0, "12 block-kernel launches in a train step (0 plain)")
+        check(rel <= 1e-6, "train-step loss through the kernel within rtol 1e-6 of plain")
+        check(worst <= 1e-4, "every gradient within 1e-4 x its largest entry of plain")
+
+        # ---- bfloat16 compute, same weights and batch
+        loss_b, grads_b, _ = _one_step({**config, "compute_dtype": "bfloat16"}, weights,
+                                       batch)
+        print(f"  one bf16 step: loss {loss_b:.6f} (f32 {loss_k:.6f})", flush=True)
+        check(abs(loss_b - loss_k) <= 1e-2 and all(
+            g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+            for g in grads_b.values()),
+            "bf16 first-step loss within 1e-2 of f32; finite float32 gradients")
+
+        # ---- the entry point: 2 epochs, then resumed for a third
+        steps = TRAIN_ALERTS // TRAIN_BATCH
+        evals = -(-VAL_ALERTS // TRAIN_BATCH)
+        cli_args = ["--data-dir", data_dir, "--out-root", out_root, "--run-name", "smoke",
+                    "--device", DEVICE]
+        runs = []
+        for epochs, extra in ((2, []), (3, ["--resume"])):
+            path = os.path.join(tmp, f"config_{epochs}.json")
+            with open(path, "w") as f:
+                json.dump(_train_config(epochs=epochs), f)
+            torch.cuda.synchronize()
+            convnext_block_fused.launches = 0
+            t0 = time.perf_counter()
+            result = train_cli([path] + cli_args + extra)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = convnext_block_fused.launches
+            ran = epochs - (2 if extra else 0)
+            want = 12 * ran * (steps + evals)
+            print(f"  cli.train {' '.join(extra) or '(fresh)'}: {ran} epoch(s), "
+                  f"{launches} block launches, {secs:.1f} s", flush=True)
+            check(launches == want, f"12 block launches per train step and eval batch "
+                                    f"({ran} x ({steps} + {evals}) x 12 = {want})")
+            hist = result["history"]
+            check(len(hist["train_loss"]) == epochs and all(
+                np.all(np.isfinite(hist[k])) for k in ("train_loss", "val_loss")),
+                f"{epochs} epochs of finite train and val losses")
+            runs.append((result, secs, launches))
+            if not extra:
+                # best_model.pth as a user loads it, scored on the val split
+                model = build_model(config, device=DEVICE)
+                model.load_state_dict(load_model_checkpoint(config, result["model_dir"]),
+                                      strict=True)
+                _, scores = predict_dataset(model, config, val)
+                d = float(np.abs(scores - result["best_val_scores"]).max())
+                print(f"  best_model.pth vs the trainer's best epoch: max|d|={d:.3g}",
+                      flush=True)
+                check(d <= 1e-6, "best_model.pth loads strict and scores the val split "
+                                 "within 1e-6 of the trainer's best-epoch predictions")
+        result = runs[-1][0]
+        with open(os.path.join(result["model_dir"], "report.json")) as f:
+            report = json.load(f)
+        check(set(report) == REPORT_KEYS and set(report["Training history"]) == HISTORY_KEYS
+              and set(report["val_summary"]) == SUMMARY_KEYS,
+              "report.json has the JAX package's keys")
+        for name in ("train_loss", "val_loss"):
+            print(f"  {name}: {[round(float(x), 5) for x in result['history'][name]]}", flush=True)
+        print(f"  val ROC-AUC {report['val_summary']['roc_auc']:.4f}", flush=True)
+        state["launches_train"] = sum(r[2] for r in runs)
+
+        # ---- speed (information only)
+        rates = {}
+        for n in (TRAIN_BATCH, 1024):
+            batch = batch_of(n)
+            for dname in ("float32", "bfloat16"):
+                cfg, st = _fresh_state({**config, "compute_dtype": dname}, weights)
+                step = make_train_step(cfg)
+                ms = time_ms(lambda: step(st, *batch))
+                rates[(n, dname)] = ms
+                print(f"  train step batch {n} {dname}: {ms:.3f} ms = {1e3 / ms:.1f} "
+                      f"steps/s, {n * 1e3 / ms:.1f} alerts/s on {state['gpu']}", flush=True)
+                del st
+        splits = {}
+        for n, dname in ((TRAIN_BATCH, "float32"), (1024, "bfloat16")):
+            sp = _step_split({**config, "compute_dtype": dname}, weights, batch_of(n))
+            splits[(n, dname)] = sp
+            print(f"  step split batch {n} {dname}: {sp['step']:.3f} ms = 12 block "
+                  f"launches {sp['launch']:.3f} + recompute backward {sp['backward']:.3f} "
+                  f"+ optimizer {sp['optimizer']:.3f} + everything else {sp['rest']:.3f} "
+                  f"on {state['gpu']}", flush=True)
+        for n, dname in ((TRAIN_BATCH, "float32"), (1024, "bfloat16")):
+            try:
+                _profile_steps({**config, "compute_dtype": dname}, weights, batch_of(n))
+            except Exception as e:  # noqa: BLE001 — information only
+                print(f"  profiler failed ({e!r}); not measured", flush=True)
+        state["train"] = {"epoch_secs": [r[1] for r in runs], "step_ms": rates,
+                          "splits": splits}
+
+
+# ------------------------------ phase 7 ------------------------------
+
 def _kernel_entry(name, source, replaces, launches, rows):
     """One forward's worth of launches at batch 3072 in bf16 (the serving
     type): each stage's time × its depth, summed over the four stages."""
@@ -607,6 +905,8 @@ def phase_report(state: dict) -> None:
                       "btsbot_tpu/ops/pallas_mlp.py:99",
                       state["launches_fast"]["fused_ln_mlp"], res["fused_ln_mlp"]),
     ]
+    # the training path's count: both cli.train runs of phase 6
+    kernels[0]["launches_train"] = state["launches_train"]
     print("  the first version of both kernels (float FMAs on the CUDA cores), recorded "
           "on an NVIDIA H100 80GB HBM3 at 700 W and not measured here: "
           "convnext_block_fused 27.6 ms, fused_ln_mlp 24.4 ms for the same 12 launches",
@@ -617,12 +917,20 @@ def phase_report(state: dict) -> None:
     for name, rate in state["throughput"].items():
         print(f"  AlertScorer {name} forward on device-resident inputs: "
               f"{rate:.1f} alerts/s on {state['gpu']}", flush=True)
+    tr = state["train"]
+    print(f"  training, flagship f32 at batch {TRAIN_BATCH}: cli.train "
+          f"{tr['epoch_secs'][0]:.1f} s for 2 epochs, {tr['epoch_secs'][1]:.1f} s resumed "
+          f"for a third, on {state['gpu']}", flush=True)
+    for (n, dname), ms in tr["step_ms"].items():
+        print(f"  train step batch {n} {dname}: {n * 1e3 / ms:.1f} alerts/s "
+              f"({1e3 / ms:.1f} steps/s)", flush=True)
     state["kernels_line"] = json.dumps({"kernels": kernels})
 
 
 PHASES = [("setup", phase_setup), ("kernels", phase_kernels),
           ("main path", phase_main_path), ("fast path", phase_fast_path),
-          ("forward split", phase_forward_split), ("report", phase_report)]
+          ("forward split", phase_forward_split), ("train", phase_train),
+          ("report", phase_report)]
 
 
 def main() -> int:

@@ -21,7 +21,8 @@ from btsbot_tpu_torch.core.config import normalize_config
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "btsbot_tpu", "train_configs", "*.json"))) \
     + [os.path.join(REPO, "btsbot_tpu", "example_data", "train_config.json")]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "btsbot_tpu", "pandas")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "btsbot_tpu", "pandas",
+             "matplotlib", "sklearn")
 
 
 @pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
@@ -56,6 +57,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import btsbot_tpu_torch.ops.ln_mlp, btsbot_tpu_torch.ops.convnext_block\n"
         "import btsbot_tpu_torch.ops.preprocess, btsbot_tpu_torch.interop.weights\n"
         "import btsbot_tpu_torch.native, btsbot_tpu_torch.data.synthetic\n"
+        "import btsbot_tpu_torch.cli.train, btsbot_tpu_torch.engine.train\n"
+        "import btsbot_tpu_torch.metrics.diagnostics, btsbot_tpu_torch.ops.augment\n"
         "btsbot_tpu_torch.AlertScorer, btsbot_tpu_torch.build_model\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
