@@ -2,12 +2,15 @@
 
 The JAX package ``btsbot_tpu`` beside it is the reference; this package
 imports nothing of it (nor jax or flax) and holds its own copies of what it
-needs.  The serving path for mm_ConvNeXt runs here end to end: packet decode
-(``native``), ingest (``ops.preprocess``), the model forward with every
-ConvNeXt block in a hand-written CUDA kernel (``ops.convnext_block``,
-``ops.ln_mlp``), and the scorers (``engine.serve``).  So does its training:
-``engine.train.run_training`` and ``python -m btsbot_tpu_torch.cli.train``,
-with the block kernel in every training and evaluation forward.
+needs.  The serving path runs here end to end: packet decode (``native``),
+ingest (``ops.preprocess``), the model forward with every ConvNeXt block in
+a hand-written CUDA kernel (``ops.convnext_block``, ``ops.ln_mlp``), and the
+scorers (``engine.serve``).  So does training: ``engine.train.run_training``
+and ``python -m btsbot_tpu_torch.cli.train``, with the block kernel in
+every training and evaluation forward.  Every family but MaxViT is ported
+(mm_ConvNeXt, ConvNeXt, mm_cnn, um_cnn, um_nn, frozen_fusion), and HF
+snapshots load through ``interop.hf`` (``load_HF_model``,
+``load_model_dir``).
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card and without that request they raise.
@@ -39,6 +42,9 @@ def __getattr__(name):
     if name == "run_training":
         from .engine.train import run_training
         return run_training
+    if name in ("load_HF_model", "load_model_dir"):
+        from .interop import hf
+        return getattr(hf, name)
     raise AttributeError(name)
 
 
@@ -56,4 +62,6 @@ __all__ = [
     "build_model",
     "state_dict_from_jax",
     "run_training",
+    "load_HF_model",
+    "load_model_dir",
 ]

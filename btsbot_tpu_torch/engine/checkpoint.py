@@ -74,6 +74,12 @@ def load_model_checkpoint(config, model_dir: str) -> dict:
                 "package, which the port cannot read)"
                 if os.path.isdir(os.path.join(model_dir, "best")) else "")
         raise FileNotFoundError(f"No {BEST_MODEL} in {model_dir}{hint}")
+    return load_torch_checkpoint(path)
+
+
+def load_torch_checkpoint(path: str) -> dict:
+    """A ``.pth`` / ``.bin`` state dict as CPU tensors (a ``module.``
+    prefix from DataParallel dropped)."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if sd and all(k.startswith("module.") for k in sd):
         sd = {k[len("module."):]: v for k, v in sd.items()}

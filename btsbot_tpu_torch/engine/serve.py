@@ -8,8 +8,10 @@
   pipelined ``score_stream``;
 * ``verify_serving_parity`` — bf16 serving scores against the float32 ones.
 
-Eager PyTorch under ``torch.inference_mode``: the model's ConvNeXt blocks
-run in the CUDA block kernel.  Both scorers run on the CUDA card unless
+Every ported family is served: an image-only model takes no metadata, a
+metadata-only one no triplets (and its stream decodes no stamps).  Eager
+PyTorch under ``torch.inference_mode``: the model's ConvNeXt blocks run in
+the CUDA block kernel.  Both scorers run on the CUDA card unless
 ``device="cpu"`` is passed, and raise without a card.
 """
 
@@ -23,7 +25,7 @@ import torch
 
 from ..core.config import normalize_config
 from ..core.device import resolve_device
-from ..models.factory import build_model
+from ..models.factory import build_model, example_inputs
 from ..ops.preprocess import l2_normalize_cutouts, preprocess_triplets
 
 
@@ -76,13 +78,14 @@ def load_model(config, weights: Mapping, dtype, device):
     return model
 
 
-def _padded(rows: np.ndarray, bs: int) -> np.ndarray:
-    """rows as float32, zero-padded to bs rows."""
+def _padded_on(rows: np.ndarray, bs: int, device) -> torch.Tensor:
+    """rows as float32 on ``device``, zero-padded to bs rows."""
     if len(rows) == bs:
-        return np.ascontiguousarray(rows, dtype=np.float32)
-    out = np.zeros((bs,) + rows.shape[1:], np.float32)
-    out[:len(rows)] = rows
-    return out
+        out = np.ascontiguousarray(rows, dtype=np.float32)
+    else:
+        out = np.zeros((bs,) + rows.shape[1:], np.float32)
+        out[:len(rows)] = rows
+    return torch.from_numpy(out).to(device)
 
 
 class AlertScorer:
@@ -108,26 +111,36 @@ class AlertScorer:
         self.model = load_model(self.config, weights, dtype, self.device)
 
     @torch.inference_mode()
-    def _score(self, images: torch.Tensor, metadata: torch.Tensor) -> torch.Tensor:
-        """(B,) float32 scores on the card for device-resident inputs."""
-        images = images.to(self.dtype)
-        if self.normalize:
-            images = l2_normalize_cutouts(images)
-        logits = self.model(images, metadata.to(self.dtype))
+    def _score(self, images: torch.Tensor | None,
+               metadata: torch.Tensor | None) -> torch.Tensor:
+        """(B,) float32 scores on the card for device-resident inputs (None
+        for a modality the model does not take)."""
+        if images is not None:
+            images = images.to(self.dtype)
+            if self.normalize:
+                images = l2_normalize_cutouts(images)
+        if metadata is not None:
+            metadata = metadata.to(self.dtype)
+        logits = self.model(images, metadata)
         z = logits.reshape(-1).float()
         if self.temperature != 1.0:
             z = z / self.temperature
         return torch.sigmoid(z)
 
-    def __call__(self, triplets, metadata) -> np.ndarray:
-        n = len(triplets)
+    def __call__(self, triplets=None, metadata=None) -> np.ndarray:
+        """Scores for ``triplets`` (N, 63, 63, 3) and ``metadata`` (N,
+        n_cols); an image-only model takes ``metadata=None``, a
+        metadata-only one ``triplets=None``."""
+        triplets = triplets if self.config.need_triplets else None
+        metadata = metadata if self.config.need_metadata else None
+        n = len(triplets) if triplets is not None else len(metadata)
         out = np.empty(n, np.float32)
         for start in range(0, n, self.batch_size):
             stop = min(start + self.batch_size, n)
             bs = _pick_bucket(self.bucket_sizes, stop - start)
-            img = torch.from_numpy(_padded(triplets[start:stop], bs)).to(self.device)
-            meta = torch.from_numpy(_padded(metadata[start:stop], bs)).to(self.device)
-            out[start:stop] = self._score(img, meta)[:stop - start].cpu().numpy()
+            out[start:stop] = self._score(*(
+                None if rows is None else _padded_on(rows[start:stop], bs, self.device)
+                for rows in (triplets, metadata)))[:stop - start].cpu().numpy()
         return out
 
     def throughput(self, iters: int = 20) -> float:
@@ -135,9 +148,12 @@ class AlertScorer:
         batch_size (host clock around ``iters`` batches, synchronised)."""
         g = torch.Generator(device="cpu").manual_seed(0)
         s = int(self.config.get("image_size", 63))
-        images = torch.randn(self.batch_size, s, s, 3, generator=g).to(self.device)
-        meta = torch.randn(self.batch_size, len(self.config["metadata_cols"]),
-                           generator=g).to(self.device)
+        images = meta = None
+        if self.config.need_triplets:
+            images = torch.randn(self.batch_size, s, s, 3, generator=g).to(self.device)
+        if self.config.need_metadata:
+            meta = torch.randn(self.batch_size, len(self.config["metadata_cols"]),
+                               generator=g).to(self.device)
         self._score(images, meta)
         _sync(self.device)
         t0 = time.perf_counter()
@@ -179,22 +195,37 @@ class AlertStreamScorer:
         self.model = load_model(self.config, weights, dtype, self.device)
 
     @torch.inference_mode()
-    def _fwd(self, raw_triplets: torch.Tensor, metadata: torch.Tensor) -> torch.Tensor:
-        imgs, corrupt = preprocess_triplets(raw_triplets.float())
-        logits = self.model(imgs.to(self.dtype), metadata.to(self.dtype))
+    def _fwd(self, raw_triplets: torch.Tensor | None,
+             metadata: torch.Tensor | None) -> torch.Tensor:
+        imgs = corrupt = None
+        if raw_triplets is not None:
+            imgs, corrupt = preprocess_triplets(raw_triplets.float())
+            imgs = imgs.to(self.dtype)
+        if metadata is not None:
+            metadata = metadata.to(self.dtype)
+        logits = self.model(imgs, metadata)
         z = logits.reshape(-1).float()
         if self.temperature != 1.0:
             z = z / self.temperature
+        if corrupt is None:  # metadata-only model: nothing to be corrupt
+            corrupt = torch.zeros_like(z)
         return torch.stack([torch.sigmoid(z), corrupt.float()])
 
     # ------------------------- pipeline stages -------------------------
 
     def _prepare(self, packets: list[dict]):
         """Host stage: decode the blobs and gather the metadata columns.
-        Returns (raw_triplets (N, 63, 63, 3), metadata, decode_bad)."""
+        Returns (raw_triplets (N, 63, 63, 3), metadata, decode_bad), None
+        for a modality the model does not take; a metadata-only model
+        decodes no stamps (its packets need no cutouts)."""
         from ..native import decode_stamps
 
         n = len(packets)
+        metadata = None
+        if self.config.need_metadata:
+            metadata = _gather_metadata(packets, self.config["metadata_cols"])
+        if not self.config.need_triplets:
+            return None, metadata, np.zeros(n, bool)
         blobs: list[bytes] = []
         for p in packets:
             for key in ("cutoutScience", "cutoutTemplate", "cutoutDifference"):
@@ -206,7 +237,6 @@ class AlertStreamScorer:
         triplets = np.ascontiguousarray(
             stamps.reshape(n, 3, 63, 63).transpose(0, 2, 3, 1))
         decode_bad = status.reshape(n, 3).any(axis=1)
-        metadata = _gather_metadata(packets, self.config["metadata_cols"])
         return triplets, metadata, decode_bad
 
     def _dispatch(self, triplets, metadata, n: int) -> torch.Tensor:
@@ -214,9 +244,8 @@ class AlertStreamScorer:
         ingest + forward.  Returns the packed (2, bucket) tensor, still being
         computed."""
         bs = _pick_bucket(self.bucket_sizes, n)
-        img = torch.from_numpy(_padded(triplets[:n], bs)).to(self.device)
-        meta = torch.from_numpy(_padded(metadata[:n], bs)).to(self.device)
-        return self._fwd(img, meta)
+        return self._fwd(*(None if rows is None else _padded_on(rows[:n], bs, self.device)
+                           for rows in (triplets, metadata)))
 
     @staticmethod
     def _finish(packed_dev: torch.Tensor, decode_bad, n: int):
@@ -230,11 +259,8 @@ class AlertStreamScorer:
     def warmup(self) -> None:
         """Run every bucket once, so the first partial batch of a stream
         pays no first-call cost (kernel build, library handles)."""
-        ncols = len(self.config["metadata_cols"])
         for bs in self.bucket_sizes:
-            img = torch.zeros(bs, 63, 63, 3, device=self.device)
-            meta = torch.zeros(bs, ncols, device=self.device)
-            self._fwd(img, meta)
+            self._fwd(*example_inputs(self.config, bs, device=self.device))
         _sync(self.device)
 
     def __call__(self, packets: list[dict]) -> tuple[np.ndarray, np.ndarray]:
@@ -312,11 +338,12 @@ class AlertStreamScorer:
             abandoned.set()
 
 
-def verify_serving_parity(config, weights, triplets, metadata, rtol: float = 1e-2,
-                          atol: float = 5e-3, device=None) -> dict:
-    """bf16 serving scores against float32 ones on the same weights.
+def verify_serving_parity(config, weights, triplets=None, metadata=None,
+                          rtol: float = 1e-2, atol: float = 5e-3, device=None) -> dict:
+    """bf16 serving scores against float32 ones on the same weights (None
+    for a modality the model does not take).
     Returns {'close': bool, 'max_diff': float}."""
-    bs = max(1, len(triplets))
+    bs = max(1, len(triplets if triplets is not None else metadata))
     s_bf16 = AlertScorer(config, weights, batch_size=bs, device=device)(triplets, metadata)
     s_f32 = AlertScorer(config, weights, batch_size=bs, dtype=torch.float32,
                         device=device)(triplets, metadata)

@@ -6,6 +6,13 @@ included (reference train.py:242-246).  ``torch.optim.AdamW`` has the
 semantics of the JAX package's ``optax.adamw``; the LR of each update is
 set by the train step from ``lr_schedule`` (engine.schedule).
 
+``frozen_fusion`` freezes its two branches (the JAX package's
+``optax.set_to_zero`` on ``image_branch`` / ``meta_branch``): AdamW takes
+only the combined head's parameters, since a parameter in torch's AdamW is
+decayed even where its gradient is zero, and the branches' parameters stop
+asking for gradients.  The whole model still runs in train mode, so the
+branches' BatchNorm statistics move and their dropout is live, as in JAX.
+
 ``TrainState`` holds what a step changes: the model (float32 parameters and
 the BatchNorm statistics), the optimizer, the update count and the
 generator that augmentation and dropout draw from.
@@ -20,14 +27,25 @@ import torch
 from torch import nn
 
 from ..models.common import set_dropout_generator
+from ..models.fusion import FROZEN_PREFIXES
 from .schedule import make_lr_schedule
 
 
+def trainable_parameters(config, model: nn.Module) -> list[nn.Parameter]:
+    """The parameters the optimizer updates; for frozen_fusion the
+    branches' are set to need no gradient and left out."""
+    if config["model_name"] != "frozen_fusion":
+        return list(model.parameters())
+    params = []
+    for name, p in model.named_parameters():
+        if name.startswith(FROZEN_PREFIXES):
+            p.requires_grad_(False)
+        else:
+            params.append(p)
+    return params
+
+
 def make_optimizer(config, params) -> torch.optim.AdamW:
-    if config["model_name"] == "frozen_fusion":
-        raise NotImplementedError(
-            "frozen_fusion's frozen-branch mask is not ported yet (ROADMAP "
-            "Queue A item 7)")
     return torch.optim.AdamW(
         params, lr=float(config["learning_rate"]),
         betas=(float(config["beta_1"]), float(config["beta_2"])),
@@ -53,6 +71,6 @@ def create_train_state(config, model: nn.Module, steps_per_epoch: int,
     generator = torch.Generator(device=device)
     set_dropout_generator(model, generator)
     return TrainState(model=model,
-                      optimizer=make_optimizer(config, model.parameters()),
+                      optimizer=make_optimizer(config, trainable_parameters(config, model)),
                       lr_schedule=make_lr_schedule(config, steps_per_epoch),
                       generator=generator, seed=seed)

@@ -14,6 +14,10 @@ Randomness: the JAX step folds the step count into its key
 from it in that order, so a run (and a resumed run) is reproducible per
 seed, though not bit for bit the JAX package's.
 
+The images' type is the compute type of the models that take images; a
+metadata-only model (um_nn) gets its metadata cast to the compute type
+instead.  A model without images skips augmentation.
+
 ``make_device_train_step`` + ``put_dataset_on_device`` are the
 ``device_data`` path: the training set lives on the card and each step
 gathers its batch by index.
@@ -53,13 +57,20 @@ def to_device(x: np.ndarray | None, device: torch.device):
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def model_inputs(config, images, metadata, dtype):
+    """(image_input, metadata_input) for the config's modality, the
+    images (or, without images, the metadata) in the compute type."""
+    if not config.need_triplets:
+        return None, metadata.to(dtype)
+    return images.to(dtype), (metadata if config.need_metadata else None)
+
+
 def make_train_step(config, plain: bool = False):
     """``train_step(state, images, metadata, labels, pos_weight)`` → metrics;
     the state (model, optimizer, step) is updated in place.  ``plain=True``
     runs every block in its plain version (for holding the kernel against
     it)."""
     need_triplets = config.need_triplets
-    need_metadata = config.need_metadata
     dtype = compute_dtype(config)
     aug_flags = dict(h_flip=bool(config.get("data_aug_h_flip", True)),
                      v_flip=bool(config.get("data_aug_v_flip", True)),
@@ -72,8 +83,8 @@ def make_train_step(config, plain: bool = False):
         state.generator.manual_seed(step_seed(state.seed, state.step))
         if do_augment:
             images = augment_triplets(state.generator, images, **aug_flags)
-        logits = model(image_input=images.to(dtype) if need_triplets else None,
-                       metadata_input=metadata if need_metadata else None,
+        image_input, metadata_input = model_inputs(config, images, metadata, dtype)
+        logits = model(image_input=image_input, metadata_input=metadata_input,
                        plain=plain)
         loss = weighted_bce_with_logits(logits, labels, pos_weight)
         opt.zero_grad(set_to_none=True)
@@ -119,15 +130,13 @@ def make_device_train_step(config, images, metadata, labels):
 def make_eval_step(config):
     """``eval_step(model, images, metadata)`` → (logits, float32 scores), in
     eval mode, without gradients."""
-    need_triplets = config.need_triplets
-    need_metadata = config.need_metadata
     dtype = compute_dtype(config)
 
     def eval_step(model, images, metadata):
         model.eval()
         with torch.no_grad():
-            logits = model(image_input=images.to(dtype) if need_triplets else None,
-                           metadata_input=metadata if need_metadata else None)
+            image_input, metadata_input = model_inputs(config, images, metadata, dtype)
+            logits = model(image_input=image_input, metadata_input=metadata_input)
         logits = logits.reshape(-1)
         return logits, torch.sigmoid(logits.float())
 

@@ -15,7 +15,10 @@ The run directory is ``{out_root}/{model_name}_{train_data_version}_N{N_max}_tor
 ``best_model.pth``, ``latest.pt`` and ``report.json`` (engine.checkpoint).
 Training runs on the CUDA card unless ``device="cpu"`` is asked for; there
 every ConvNeXt block of every training and evaluation forward is the block
-kernel.  Not ported yet (ROADMAP): the mesh, the experiment logger, a
+kernel.  Every ported family trains here; a frozen_fusion run with
+``image_model_dir`` (and no ``skip_load_state``) starts from the branch run
+directories' ``best_model.pth`` files and updates only its combined head
+(engine.state).  Not ported yet (ROADMAP): the mesh, the experiment logger, a
 distillation teacher, a backbone checkpoint, embeddings and the diagnostic
 figure.
 """
@@ -42,6 +45,7 @@ from ..metrics.classification import alert_metrics
 from ..metrics.diagnostics import diagnostic_summary
 from ..metrics.report import make_report
 from ..models.factory import build_model
+from ..models.fusion import load_fusion_branches
 from .checkpoint import (
     BEST_MODEL,
     LATEST,
@@ -66,6 +70,11 @@ def _initial_weights(config, model, initial_state_dict, log) -> None:
     if initial_state_dict is not None:
         model.load_state_dict({k: torch.as_tensor(np.asarray(v))
                                for k, v in initial_state_dict.items()})
+    elif (config["model_name"] == "frozen_fusion" and config.get("image_model_dir")
+          and not config.get("skip_load_state", False)):
+        model.load_state_dict(load_fusion_branches(config, model.state_dict()),
+                              strict=True)
+        log("Loaded frozen-fusion branch weights from model dirs")
     elif config.get("backbone_checkpoint"):
         raise NotImplementedError(
             "backbone_checkpoint initialisation is not ported yet (ROADMAP "

@@ -13,13 +13,19 @@
   with that biased batch variance, momentum 0.9;
 * ``Dropout`` — inverted dropout whose mask comes from ``generator`` when
   one is set (``set_dropout_generator``), so a training step's masks follow
-  the train state's seed;
-* ``MetadataBranch`` — BatchNorm → Linear → GELU → Dropout → Linear → GELU,
-  the BatchNorm output cast to the compute type;
-* ``CombinedHead`` — Linear → GELU → Linear → GELU → Dropout → Linear(1).
+  the train state's seed; ``Dropout2d`` draws one mask entry per (alert,
+  channel) of an NHWC map, shape (N, 1, 1, C), as the JAX package's
+  ``Dropout(broadcast_dims=(1, 2))`` (models/cnn.py:50-51, 60-61);
+* ``MetadataBranch`` — BatchNorm → Linear → act → Dropout → Linear → act,
+  the BatchNorm output cast to the compute type (the last act left out for
+  frozen_fusion's metadata branch);
+* ``CombinedHead`` / ``ImageHead`` — Linear → act → Linear → act → Dropout
+  → Linear(1).
 
-Both heads are ``nn.Sequential``s so their parameters carry the reference's
-state-dict names (``metadata_branch.{0,1,4}``, ``combined_head.{0,2,5}``).
+``act`` is ``"gelu"`` (the JAX dtype rule above) or ``"relu"``, as the JAX
+package's ``activation`` argument.  The heads are ``nn.Sequential``s so
+their parameters carry the reference's state-dict names
+(``metadata_branch.{0,1,4}``, ``combined_head.{0,2,5}``, ``head.{0,2,5}``).
 """
 
 from __future__ import annotations
@@ -78,11 +84,22 @@ class BatchNorm1d(nn.BatchNorm1d):
 class Dropout(nn.Dropout):
     generator: torch.Generator | None = None
 
+    def _mask_shape(self, x: torch.Tensor) -> tuple[int, ...]:
+        return tuple(x.shape)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0:
             return x
-        keep = torch.empty_like(x).bernoulli_(1 - self.p, generator=self.generator)
+        keep = x.new_empty(self._mask_shape(x)).bernoulli_(1 - self.p,
+                                                          generator=self.generator)
         return x * keep / (1 - self.p)
+
+
+class Dropout2d(Dropout):
+    """Channel-wise dropout of an NHWC map: one draw per (alert, channel)."""
+
+    def _mask_shape(self, x: torch.Tensor) -> tuple[int, ...]:
+        return (x.shape[0], 1, 1, x.shape[3])
 
 
 def set_dropout_generator(model: nn.Module, generator: torch.Generator | None) -> None:
@@ -100,15 +117,20 @@ def check_inputs(model_name: str, image_input, metadata_input) -> None:
         raise ValueError(f"{model_name} requires metadata_input")
 
 
+ACTIVATIONS = {"gelu": GELU, "relu": nn.ReLU}
+
+
 class MetadataBranch(nn.Sequential):
-    def __init__(self, n_in: int, fc1: int, fc2: int, dropout: float):
+    def __init__(self, n_in: int, fc1: int, fc2: int, dropout: float,
+                 activation: str = "gelu", final_activation: bool = True):
+        act = ACTIVATIONS[activation]
         super().__init__(
             BatchNorm1d(n_in),
             Linear(n_in, fc1),
-            GELU(),
+            act(),
             Dropout(dropout),
             Linear(fc1, fc2),
-            GELU(),
+            *([act()] if final_activation else []),
         )
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -120,13 +142,19 @@ class MetadataBranch(nn.Sequential):
         return x
 
 
+def head_layers(n_in: int, fc1: int, fc2: int, dropout: float,
+                activation: str = "gelu") -> list[nn.Module]:
+    """Linear → act → Linear → act → Dropout → Linear(1)."""
+    act = ACTIVATIONS[activation]
+    return [Linear(n_in, fc1), act(), Linear(fc1, fc2), act(), Dropout(dropout),
+            Linear(fc2, 1)]
+
+
 class CombinedHead(nn.Sequential):
-    def __init__(self, n_in: int, fc1: int, fc2: int, dropout: float):
-        super().__init__(
-            Linear(n_in, fc1),
-            GELU(),
-            Linear(fc1, fc2),
-            GELU(),
-            Dropout(dropout),
-            Linear(fc2, 1),
-        )
+    def __init__(self, n_in: int, fc1: int, fc2: int, dropout: float,
+                 activation: str = "gelu"):
+        super().__init__(*head_layers(n_in, fc1, fc2, dropout, activation))
+
+
+class ImageHead(CombinedHead):
+    """The single-modal models' classifier head (the same layers)."""

@@ -21,11 +21,13 @@ torch checkpoints load with ``strict=True``.
 
 ``MmConvNeXt`` keeps both heads: pool + LayerNorm + flatten when "LS" is in
 ``train_data_version``, else a flatten of the final map (1×1 for 63×63
-input), in NHWC order as the JAX model flattens.
+input), in NHWC order as the JAX model flattens.  ``ConvNeXtClassifier``
+(reference ``ConvNeXt``) is image-only: its ``convnext.head`` is the
+reference's [pool, norm, flatten, fc1, GELU, fc2, GELU, dropout, out].
 
-Not ported yet (ROADMAP): the ``inceptionnext_*`` mixer, ``DWConvDense``
+Not ported yet (ROADMAP): the ``inceptionnext_*`` mixer and ``DWConvDense``
 (a TPU lowering choice with the same math as the depthwise conv, so the
-``dwconv_dense`` config key is ignored here) and ``ConvNeXtClassifier``.
+``dwconv_dense`` config key is ignored here).
 """
 
 from __future__ import annotations
@@ -37,7 +39,14 @@ import torch
 from torch import nn
 
 from ..ops.convnext_block import convnext_block_fused, convnext_block_reference
-from .common import CombinedHead, Conv2d, LayerNorm, MetadataBranch, check_inputs
+from .common import (
+    CombinedHead,
+    Conv2d,
+    LayerNorm,
+    MetadataBranch,
+    check_inputs,
+    head_layers,
+)
 
 # depths / dims for the timm ConvNeXt model names used by BTSbot checkpoints.
 CONVNEXT_CONFIGS: dict[str, dict] = {
@@ -163,19 +172,41 @@ def _final_map_size(image_size: int, n_stages: int) -> int:
     return s
 
 
+def backbone_from_config(config, head_norm: bool) -> ConvNeXtBackbone:
+    spec = convnext_spec(config.get("model_kind", "convnext_nano.d1h_in1k"))
+    if spec.get("token_mixer", "dwconv7") != "dwconv7":
+        raise NotImplementedError(
+            "inceptionnext_* model kinds are not ported yet (ROADMAP "
+            "Queue A: InceptionMixer)")
+    return ConvNeXtBackbone(spec["depths"], spec["dims"], head_norm)
+
+
+class ConvNeXtClassifier(nn.Module):
+    """Image-only ConvNeXt (reference ``ConvNeXt``): pool → LayerNorm →
+    ``ImageHead`` (GELU) inside ``convnext.head``."""
+
+    def __init__(self, config):
+        super().__init__()
+        self.convnext = backbone_from_config(config, head_norm=True)
+        n = convnext_spec(config.get("model_kind", "convnext_nano.d1h_in1k"))["dims"][-1]
+        for layer in head_layers(n, config["fc1_neurons"], config["fc2_neurons"],
+                                 config["dropout"], "gelu"):
+            self.convnext.head.append(layer)
+
+    def forward(self, image_input=None, metadata_input=None,
+                plain: bool = False) -> torch.Tensor:
+        check_inputs("ConvNeXt", image_input, metadata_input)
+        return self.convnext(image_input, plain)
+
+
 class MmConvNeXt(nn.Module):
     """Multi-modal ConvNeXt (reference ``mm_ConvNeXt``)."""
 
     def __init__(self, config):
         super().__init__()
         spec = convnext_spec(config.get("model_kind", "convnext_nano.d1h_in1k"))
-        if spec.get("token_mixer", "dwconv7") != "dwconv7":
-            raise NotImplementedError(
-                "inceptionnext_* model kinds are not ported yet (ROADMAP "
-                "Queue A: InceptionMixer)")
         head_norm = "LS" in config.get("train_data_version", "")
-        self.convnext_backbone = ConvNeXtBackbone(spec["depths"], spec["dims"],
-                                                  head_norm)
+        self.convnext_backbone = backbone_from_config(config, head_norm)
         side = _final_map_size(int(config.get("image_size", 63)), len(spec["dims"]))
         n_img = spec["dims"][-1] * (1 if head_norm else side * side)
         n_meta = len(config["metadata_cols"])

@@ -1,6 +1,6 @@
 """Model construction by config name (port of btsbot_tpu.models.factory).
 
-Only mm_ConvNeXt is ported so far; the other names raise
+Every family is ported except MaxViT / mm_MaxViT, which raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
@@ -10,18 +10,23 @@ import torch
 
 from ..core.config import Config, normalize_config
 from ..core.device import resolve_device
-from .convnext import MmConvNeXt
+from .cnn import MmCnn, UmCnn
+from .convnext import ConvNeXtClassifier, MmConvNeXt
+from .fusion import FrozenFusion
+from .mlp import UmNN
 
-MODEL_REGISTRY = {"mm_ConvNeXt": MmConvNeXt}
+MODEL_REGISTRY = {
+    "mm_cnn": MmCnn,
+    "um_cnn": UmCnn,
+    "um_nn": UmNN,
+    "ConvNeXt": ConvNeXtClassifier,
+    "mm_ConvNeXt": MmConvNeXt,
+    "frozen_fusion": FrozenFusion,
+}
 
 _NOT_PORTED = {
-    "ConvNeXt": "ROADMAP Queue A item 2 (ConvNeXtClassifier)",
-    "mm_cnn": "ROADMAP Queue A item 7 (remaining families)",
-    "um_cnn": "ROADMAP Queue A item 7 (remaining families)",
-    "um_nn": "ROADMAP Queue A item 7 (remaining families)",
-    "MaxViT": "ROADMAP Queue A item 7 (remaining families)",
-    "mm_MaxViT": "ROADMAP Queue A item 7 (remaining families)",
-    "frozen_fusion": "ROADMAP Queue A item 7 (remaining families)",
+    "MaxViT": "ROADMAP Queue A item 7 (MaxViT, the next slice)",
+    "mm_MaxViT": "ROADMAP Queue A item 7 (MaxViT, the next slice)",
 }
 
 
@@ -44,3 +49,19 @@ def build_model(config, dtype=torch.float32, device=None, seed: int = 0):
         torch.manual_seed(seed)
         model = cls(config)
     return model.to(device=dev, dtype=dtype).eval()
+
+
+def example_inputs(config, batch_size: int = 1, dtype=torch.float32, device=None):
+    """Zero (image, metadata) inputs matching the config's modality (None
+    for a modality the model does not take)."""
+    if not isinstance(config, Config):
+        config = normalize_config(config)
+    dev = resolve_device(device)
+    image = metadata = None
+    if config.need_triplets:
+        s = int(config.get("image_size", 63))
+        image = torch.zeros(batch_size, s, s, 3, dtype=dtype, device=dev)
+    if config.need_metadata:
+        n = len(config.get("metadata_cols", []))
+        metadata = torch.zeros(batch_size, n, dtype=dtype, device=dev)
+    return image, metadata

@@ -183,12 +183,6 @@ def test_adamw_updates_match_optax():
                                        rtol=1e-6, atol=1e-7)
 
 
-def test_frozen_fusion_mask_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        make_optimizer({"model_name": "frozen_fusion", "learning_rate": 1e-3,
-                        "beta_1": 0.9, "beta_2": 0.9}, [torch.nn.Parameter(torch.zeros(1))])
-
-
 # ------------------------------ train-mode layers ------------------------------
 
 def test_batchnorm_train_mode_follows_flax():
