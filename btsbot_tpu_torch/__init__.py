@@ -7,8 +7,9 @@ ingest (``ops.preprocess``), the model forward with every ConvNeXt block in
 a hand-written CUDA kernel (``ops.convnext_block``, ``ops.ln_mlp``), and the
 scorers (``engine.serve``).  So does training: ``engine.train.run_training``
 and ``python -m btsbot_tpu_torch.cli.train``, with the block kernel in
-every training and evaluation forward.  Every family but MaxViT is ported
-(mm_ConvNeXt, ConvNeXt, mm_cnn, um_cnn, um_nn, frozen_fusion), and HF
+every training and evaluation forward.  Every family is ported
+(mm_ConvNeXt and ConvNeXt with ``convnext_*`` or ``inceptionnext_*`` kinds,
+MaxViT, mm_MaxViT, mm_cnn, um_cnn, um_nn, frozen_fusion), and HF
 snapshots load through ``interop.hf`` (``load_HF_model``,
 ``load_model_dir``).
 

@@ -11,8 +11,11 @@ write without JAX.  The port writes the reference's convention instead:
                                     generator state and the loop's extras
 
 The JAX package's ``load_model_checkpoint`` reads ``best_model.pth``, so a
-run directory of the port loads there too.  Files are written to a
-temporary name and renamed, so an interrupted save leaves the last one.
+run directory of the port loads there too.  A MaxViT checkpoint is adapted
+to the config that loads it (``interop.maxvit_convert.adapt_state_dict``:
+the bias tables resampled to its resolution), as the JAX package converts
+it.  Files are written to a temporary name and renamed, so an interrupted
+save leaves the last one.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ import os
 
 import numpy as np
 import torch
+
+from ..interop.maxvit_convert import adapt_state_dict
 
 BEST_MODEL = "best_model.pth"
 LATEST = "latest.pt"
@@ -65,16 +70,15 @@ def restore_train_state(path: str, state):
 def load_model_checkpoint(config, model_dir: str) -> dict:
     """The best model's reference-named state dict (CPU tensors) from a run
     directory of the port or of the reference trainer (a ``module.``
-    prefix from DataParallel is dropped).  ``config`` is taken for the JAX
-    package's signature; the file needs no conversion."""
-    del config
+    prefix from DataParallel is dropped), adapted to ``config``'s model
+    (a MaxViT's bias tables resampled to its resolution; None: as saved)."""
     path = os.path.join(model_dir, BEST_MODEL)
     if not os.path.isfile(path):
         hint = (" (its best/ directory is an orbax checkpoint of the JAX "
                 "package, which the port cannot read)"
                 if os.path.isdir(os.path.join(model_dir, "best")) else "")
         raise FileNotFoundError(f"No {BEST_MODEL} in {model_dir}{hint}")
-    return load_torch_checkpoint(path)
+    return adapt_state_dict(config, load_torch_checkpoint(path))
 
 
 def load_torch_checkpoint(path: str) -> dict:

@@ -11,7 +11,8 @@
 Every ported family is served: an image-only model takes no metadata, a
 metadata-only one no triplets (and its stream decodes no stamps).  Eager
 PyTorch under ``torch.inference_mode``: the model's ConvNeXt blocks run in
-the CUDA block kernel.  Both scorers run on the CUDA card unless
+the CUDA block kernel, the InceptionNeXt blocks' LN → MLP halves in
+``fused_ln_mlp``.  Both scorers run on the CUDA card unless
 ``device="cpu"`` is passed, and raise without a card.
 """
 

@@ -2,7 +2,8 @@
 
 One training step is: augmentation on the device → train-mode forward in
 the config's ``compute_dtype`` (every ConvNeXt block through the block
-kernel on the card; its backward recomputes the plain version) → weighted
+kernel on the card, every InceptionNeXt block's LN → MLP half through
+``fused_ln_mlp``; their backward recomputes the plain version) → weighted
 BCE in float32 → backward → AdamW update at the LR of this update.  The
 step returns device tensors (loss, logits, scores and the in-step
 ``correct`` count) and reads nothing back, so the host never waits on the

@@ -15,7 +15,8 @@ The run directory is ``{out_root}/{model_name}_{train_data_version}_N{N_max}_tor
 ``best_model.pth``, ``latest.pt`` and ``report.json`` (engine.checkpoint).
 Training runs on the CUDA card unless ``device="cpu"`` is asked for; there
 every ConvNeXt block of every training and evaluation forward is the block
-kernel.  Every ported family trains here; a frozen_fusion run with
+kernel (an InceptionNeXt block's LN → MLP half ``fused_ln_mlp``).  Every
+family trains here; a frozen_fusion run with
 ``image_model_dir`` (and no ``skip_load_state``) starts from the branch run
 directories' ``best_model.pth`` files and updates only its combined head
 (engine.state).  Not ported yet (ROADMAP): the mesh, the experiment logger, a

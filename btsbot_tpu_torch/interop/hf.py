@@ -12,10 +12,10 @@ snapshot loads with ``strict=True`` and no converter:
 ``load_HF_model`` downloads only when the local snapshot is missing
 (``download_HF_model``: ``huggingface_hub`` imported there, network needed);
 offline, put the two files under ``models/<repo name>`` or call
-``load_model_dir`` on any directory holding them.  MaxViT and the
-``inceptionnext`` serving variant are not ported yet (ROADMAP Queue A item 7
-and "What waits" item 1) and raise ``NotImplementedError`` before any
-download.
+``load_model_dir`` on any directory holding them.  Every architecture of
+the link grid loads: ``convnext`` (pico), ``maxvit`` (tiny; a snapshot at
+another resolution than its config's has its bias tables resampled, as in
+``engine.checkpoint``) and the JAX package's ``inceptionnext`` (pico).
 """
 
 from __future__ import annotations
@@ -28,13 +28,10 @@ import torch
 from ..core.config import normalize_config
 from ..engine.checkpoint import load_torch_checkpoint
 from ..models.factory import build_model
+from .maxvit_convert import adapt_state_dict
 
 CONFIG_FILE = "train_config.json"
 WEIGHTS_FILE = "pytorch_model.bin"
-_NOT_PORTED = {
-    "maxvit": "ROADMAP Queue A item 7 (MaxViT, the next slice)",
-    "inceptionnext": "ROADMAP \"What waits\" item 1 (InceptionMixer)",
-}
 
 
 def validate_model_params(architecture: str, multi_modal: bool, pretrain: str):
@@ -86,8 +83,8 @@ def load_model_dir(model_dir: str, dtype=torch.float32, device=None):
     with open(os.path.join(model_dir, CONFIG_FILE)) as f:
         config = normalize_config(json.load(f))
     model = build_model(config, dtype=dtype, device=device)
-    model.load_state_dict(load_torch_checkpoint(os.path.join(model_dir, WEIGHTS_FILE)),
-                          strict=True)
+    sd = load_torch_checkpoint(os.path.join(model_dir, WEIGHTS_FILE))
+    model.load_state_dict(adapt_state_dict(config, sd), strict=True)
     return model, config
 
 
@@ -96,9 +93,6 @@ def load_HF_model(architecture: str, multi_modal: bool, pretrain: str,
     """The reference's entry point (from_HF.py): the local snapshot under
     ``models_root``, downloaded first if it is missing; returns (model,
     config)."""
-    if architecture in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{architecture} is not ported yet: {_NOT_PORTED[architecture]}")
     model_dir = get_local_model_dir(architecture, multi_modal, pretrain, models_root)
     if not all(os.path.isfile(os.path.join(model_dir, f))
                for f in (WEIGHTS_FILE, CONFIG_FILE)):

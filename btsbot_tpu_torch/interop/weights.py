@@ -16,6 +16,14 @@ CNN flatten (``combined_head.0`` of mm_cnn and of a fusion over um_cnn,
 (``nchw_flatten_perm``, a copy of the JAX package's).  mm_ConvNeXt needs no
 permutation (its final map is 1×1 at 63×63 input, and the port flattens it
 in the JAX model's NHWC order).
+
+MaxViT follows the JAX package's MaxViT exporter
+(btsbot_tpu/interop/maxvit_convert.py:274-353): timm maxxvit names under
+``maxvit.`` (image-only, head ``maxvit.head.{1,3,6}``), ``maxvit_backbone.``
+(mm_MaxViT) or ``image_branch.maxvit.`` (a fusion branch); the bias-free
+convs (stem.conv1, conv1_1x1, conv2_kxk) carry no bias entry.  The
+``inceptionnext_*`` kinds put their mixer under
+``stages.{s}.blocks.{b}.mixer.{dw_square,dw_band_w,dw_band_h}``.
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ import numpy as np
 from ..core.config import Config, normalize_config
 from ..models.convnext import convnext_spec
 from ..models.fusion import resolve_fusion_config
+from ..models.maxvit import DEFAULT_KIND as MAXVIT_DEFAULT_KIND
+from ..models.maxvit import maxvit_spec
 
 
 def _np(x) -> np.ndarray:
@@ -65,7 +75,8 @@ def _linear(sd: dict, prefix: str, leaf: Mapping,
 
 def _conv(sd: dict, prefix: str, leaf: Mapping) -> None:
     sd[f"{prefix}.weight"] = np.transpose(_np(leaf["kernel"]), (3, 2, 0, 1)).copy()
-    sd[f"{prefix}.bias"] = _np(leaf["bias"]).copy()
+    if "bias" in leaf:
+        sd[f"{prefix}.bias"] = _np(leaf["bias"]).copy()
 
 
 def _norm(sd: dict, prefix: str, leaf: Mapping) -> None:
@@ -82,10 +93,6 @@ def _batch_norm(sd: dict, prefix: str, params: Mapping, stats: Mapping) -> None:
 
 def _convnext_backbone(sd: dict, prefix: str, params: Mapping, model_kind: str) -> None:
     spec = convnext_spec(model_kind)
-    if spec.get("token_mixer", "dwconv7") != "dwconv7":
-        raise NotImplementedError(
-            "inceptionnext_* weights are not ported yet (ROADMAP Queue A: "
-            "InceptionMixer)")
     _conv(sd, f"{prefix}.stem.0", params["stem_conv"])
     _norm(sd, f"{prefix}.stem.1", params["stem_norm"])
     for si, depth in enumerate(spec["depths"]):
@@ -96,11 +103,50 @@ def _convnext_backbone(sd: dict, prefix: str, params: Mapping, model_kind: str) 
         for b in range(depth):
             block = stage[f"block{b}"]
             bp = f"{prefix}.stages.{si}.blocks.{b}"
-            _conv(sd, f"{bp}.conv_dw", block["conv_dw"])
+            if "mixer" in block:  # inceptionnext_* kinds
+                for leaf in ("dw_square", "dw_band_w", "dw_band_h"):
+                    _conv(sd, f"{bp}.mixer.{leaf}", block["mixer"][leaf])
+            else:
+                _conv(sd, f"{bp}.conv_dw", block["conv_dw"])
             _norm(sd, f"{bp}.norm", block["norm"])
             _linear(sd, f"{bp}.mlp.fc1", block["mlp_fc1"])
             _linear(sd, f"{bp}.mlp.fc2", block["mlp_fc2"])
             sd[f"{bp}.gamma"] = _np(block["gamma"]).copy()
+
+
+def _maxvit_attention(sd: dict, prefix: str, block: Mapping, suffix: str) -> None:
+    _norm(sd, f"{prefix}.norm1", block[f"norm1_{suffix}"])
+    attn = block[f"attn_{suffix}"]
+    _linear(sd, f"{prefix}.attn.qkv", attn["qkv"])
+    _linear(sd, f"{prefix}.attn.proj", attn["proj"])
+    sd[f"{prefix}.attn.rel_pos.relative_position_bias_table"] = \
+        _np(attn["rel_pos_table"]).copy()
+    _norm(sd, f"{prefix}.norm2", block[f"norm2_{suffix}"])
+    _linear(sd, f"{prefix}.mlp.fc1", block[f"mlp_{suffix}"]["fc1"])
+    _linear(sd, f"{prefix}.mlp.fc2", block[f"mlp_{suffix}"]["fc2"])
+
+
+def _maxvit_backbone(sd: dict, prefix: str, params: Mapping, stats: Mapping,
+                     model_kind: str) -> None:
+    _conv(sd, f"{prefix}.stem.conv1", params["stem_conv1"])
+    _batch_norm(sd, f"{prefix}.stem.norm1", params["stem_norm1"], stats["stem_norm1"])
+    _conv(sd, f"{prefix}.stem.conv2", params["stem_conv2"])
+    for s, depth in enumerate(maxvit_spec(model_kind)["depths"]):
+        for b in range(depth):
+            bp = f"{prefix}.stages.{s}.blocks.{b}"
+            block = params[f"stage{s}_block{b}"]
+            mb, mb_stats = block["mbconv"], stats[f"stage{s}_block{b}"]["mbconv"]
+            for norm in ("pre_norm", "norm1", "norm2"):
+                _batch_norm(sd, f"{bp}.conv.{norm}", mb[norm], mb_stats[norm])
+            _conv(sd, f"{bp}.conv.conv1_1x1", mb["conv1_1x1"])
+            _conv(sd, f"{bp}.conv.conv2_kxk", mb["conv2_dw"])
+            _conv(sd, f"{bp}.conv.se.fc1", mb["se"]["fc1"])
+            _conv(sd, f"{bp}.conv.se.fc2", mb["se"]["fc2"])
+            _conv(sd, f"{bp}.conv.conv3_1x1", mb["conv3_1x1"])
+            if "shortcut_conv" in mb:
+                _conv(sd, f"{bp}.conv.shortcut.conv", mb["shortcut_conv"])
+            _maxvit_attention(sd, f"{bp}.attn_block", block, "block")
+            _maxvit_attention(sd, f"{bp}.attn_grid", block, "grid")
 
 
 def _cnn_backbone(sd: dict, prefix: str, params: Mapping) -> None:
@@ -171,10 +217,12 @@ def _frozen_fusion(config: Config, variables: Mapping) -> dict:
         _convnext_backbone(sd, "image_branch.convnext", img["backbone"],
                            img_cfg.get("model_kind", "convnext_nano.d1h_in1k"))
         _norm(sd, "image_branch.convnext.head.1", img["head_norm"])
+    elif name == "MaxViT":
+        _maxvit_backbone(sd, "image_branch.maxvit", img["backbone"],
+                         s["image_branch"]["backbone"],
+                         img_cfg.get("model_kind", MAXVIT_DEFAULT_KIND))
     else:
-        raise NotImplementedError(
-            f"no weight bridge for a {name} fusion branch yet (ROADMAP Queue A "
-            f"item 7: MaxViT)")
+        raise ValueError(f"Model {name} not supported as fusion image branch")
     _metadata_branch(sd, "meta_branch.network", p["meta_branch"], s["meta_branch"])
     _head(sd, "combined_head", p["combined_head"],
           in_perm=_fc1_perm(img_cfg, p["combined_head"]) if name == "um_cnn" else None)
@@ -194,8 +242,28 @@ def _mm_convnext(config: Config, variables: Mapping) -> dict:
     return sd
 
 
+def _maxvit(config: Config, variables: Mapping) -> dict:
+    p, s = variables["params"], variables["batch_stats"]
+    sd: dict[str, Any] = {}
+    _maxvit_backbone(sd, "maxvit", p["backbone"], s["backbone"],
+                     config.get("model_kind", MAXVIT_DEFAULT_KIND))
+    _head(sd, "maxvit.head", p["head"], indices=(1, 3, 6))
+    return sd
+
+
+def _mm_maxvit(config: Config, variables: Mapping) -> dict:
+    p, s = variables["params"], variables["batch_stats"]
+    sd: dict[str, Any] = {}
+    _maxvit_backbone(sd, "maxvit_backbone", p["backbone"], s["backbone"],
+                     config.get("model_kind", MAXVIT_DEFAULT_KIND))
+    _metadata_branch(sd, "metadata_branch", p["metadata_branch"], s["metadata_branch"])
+    _head(sd, "combined_head", p["combined_head"])
+    return sd
+
+
 _CONVERTERS = {"mm_cnn": _mm_cnn, "um_cnn": _um_cnn, "um_nn": _um_nn,
                "ConvNeXt": _convnext, "mm_ConvNeXt": _mm_convnext,
+               "MaxViT": _maxvit, "mm_MaxViT": _mm_maxvit,
                "frozen_fusion": _frozen_fusion}
 
 
@@ -205,6 +273,5 @@ def state_dict_from_jax(config, variables: Mapping) -> dict:
         config = normalize_config(config)
     name = config["model_name"]
     if name not in _CONVERTERS:
-        raise NotImplementedError(
-            f"no weight bridge for {name} yet (ROADMAP Queue A item 7: MaxViT)")
+        raise ValueError(f"Could not find model of name {name}")
     return _CONVERTERS[name](config, variables)

@@ -10,7 +10,8 @@
 * ``BatchNorm1d`` — eps 1e-5; in eval mode torch's own; in train mode the
   flax rule (models/common.py:79-85 of the JAX package): statistics in
   float32 as E[x²] − E[x]² clipped at 0, and the running variance updated
-  with that biased batch variance, momentum 0.9;
+  with that biased batch variance, momentum 0.9; ``BatchNorm2d`` the same
+  over the channel (last) axis of an NHWC map, eval mode on its NCHW view;
 * ``Dropout`` — inverted dropout whose mask comes from ``generator`` when
   one is set (``set_dropout_generator``), so a training step's masks follow
   the train state's seed; ``Dropout2d`` draws one mask entry per (alert,
@@ -54,13 +55,29 @@ class Linear(nn.Linear):
 
 class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
 class LayerNorm(nn.LayerNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x, self.normalized_shape, self.weight.to(x.dtype),
                             self.bias.to(x.dtype), self.eps)
+
+
+def _flax_batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
+                           dims: tuple[int, ...]) -> torch.Tensor:
+    """Train-mode BatchNorm over ``dims`` of x, channels last: the flax
+    rule in float32, the running statistics updated in place."""
+    xf = x.float()
+    mean = xf.mean(dim=dims)
+    var = torch.clamp(xf.square().mean(dim=dims) - mean.square(), min=0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(0.9).add_(0.1 * mean)
+        bn.running_var.mul_(0.9).add_(0.1 * var)
+        bn.num_batches_tracked.add_(1)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight.float()
+    return ((xf - mean) * mul + bn.bias.float()).to(x.dtype)
 
 
 class BatchNorm1d(nn.BatchNorm1d):
@@ -70,15 +87,21 @@ class BatchNorm1d(nn.BatchNorm1d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        xf = x.float()
-        mean = xf.mean(dim=0)
-        var = torch.clamp(xf.square().mean(dim=0) - mean.square(), min=0.0)
-        with torch.no_grad():
-            self.running_mean.mul_(0.9).add_(0.1 * mean)
-            self.running_var.mul_(0.9).add_(0.1 * var)
-            self.num_batches_tracked.add_(1)
-        mul = torch.rsqrt(var + self.eps) * self.weight.float()
-        return ((xf - mean) * mul + self.bias.float()).to(x.dtype)
+        return _flax_batch_norm_train(self, x, (0,))
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm of an NHWC map over its last (channel) axis."""
+
+    def __init__(self, n: int):
+        super().__init__(n, eps=1e-5, momentum=0.1)  # flax momentum 0.9
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return _flax_batch_norm_train(self, x, (0, 1, 2))
+        # float32 inside whatever the input's type; NHWC out
+        return F.batch_norm(x.permute(0, 3, 1, 2), self.running_mean, self.running_var,
+                            self.weight, self.bias, False, 0.0, self.eps).permute(0, 2, 3, 1)
 
 
 class Dropout(nn.Dropout):

@@ -9,6 +9,13 @@ Same architecture as the JAX package (timm ConvNeXt-v1):
   is ``ops.convnext_block.convnext_block_fused``: the CUDA kernel on the
   card, its plain version on the CPU; in training its backward recomputes
   the plain version.
+* ``inceptionnext_<size>[.r<k>]`` kinds: the same sizes with the
+  InceptionNeXt mixer (``InceptionMixer``: channels split 1/8 depthwise
+  3×3, 1/8 depthwise 1×11, 1/8 depthwise 11×1, 5/8 identity) in place of
+  the 7×7 depthwise conv, and an MLP ratio of k (default 4).  The mixer's
+  convs are cuDNN on NCHW views; the rest of the block (LayerNorm → MLP →
+  γ → residual) is ``ops.ln_mlp.fused_ln_mlp``, the CUDA kernel on the
+  card (one launch a block) and its plain version on the CPU.
 
 The images' type is the compute type: the stem, downsample and head layers
 (``models.common``) cast float32 parameters to it, as the block kernel
@@ -25,9 +32,9 @@ input), in NHWC order as the JAX model flattens.  ``ConvNeXtClassifier``
 (reference ``ConvNeXt``) is image-only: its ``convnext.head`` is the
 reference's [pool, norm, flatten, fc1, GELU, fc2, GELU, dropout, out].
 
-Not ported yet (ROADMAP): the ``inceptionnext_*`` mixer and ``DWConvDense``
-(a TPU lowering choice with the same math as the depthwise conv, so the
-``dwconv_dense`` config key is ignored here).
+Not ported (ROADMAP): ``DWConvDense``, a TPU lowering choice with the same
+math as the depthwise conv, so the ``dwconv_dense`` config key is ignored
+here.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ import torch
 from torch import nn
 
 from ..ops.convnext_block import convnext_block_fused, convnext_block_reference
+from ..ops.ln_mlp import fused_ln_mlp, ln_mlp_reference
 from .common import (
     CombinedHead,
     Conv2d,
@@ -118,14 +126,59 @@ class ConvNeXtBlock(nn.Module):
         return fn(x, *self.block_params())
 
 
+class InceptionMixer(nn.Module):
+    """InceptionNeXt token mixer (Yu et al. 2023): g = max(1, C // 8)
+    channels each through a depthwise 3×3, 1×band and band×1 conv (with
+    bias, SAME padding), the other C − 3g passed through, concatenated in
+    that order."""
+
+    def __init__(self, dim: int, band: int = 11):
+        super().__init__()
+        g = max(1, dim // 8)
+        self.split = (g, g, g, dim - 3 * g)
+        self.dw_square = Conv2d(g, g, 3, padding=1, groups=g)
+        self.dw_band_w = Conv2d(g, g, (1, band), padding=(0, band // 2), groups=g)
+        self.dw_band_h = Conv2d(g, g, (band, 1), padding=(band // 2, 0), groups=g)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x0, x1, x2, rest = torch.split(x, self.split, dim=-1)
+        return torch.cat([conv_nhwc(self.dw_square, x0), conv_nhwc(self.dw_band_w, x1),
+                          conv_nhwc(self.dw_band_h, x2), rest], dim=-1)
+
+
+class InceptionNeXtBlock(nn.Module):
+    """mixer → ``fused_ln_mlp`` (LayerNorm eps 1e-6 → Linear(ratio·dim) →
+    GELU → Linear(dim) → γ → residual) over the block's (B·H·W, C) rows."""
+
+    def __init__(self, dim: int, mlp_ratio: float = 4.0, ls_init_value: float = 1e-6):
+        super().__init__()
+        self.mixer = InceptionMixer(dim)
+        self.norm = nn.LayerNorm(dim, eps=1e-6)
+        self.mlp = Mlp(dim, int(mlp_ratio * dim))
+        self.gamma = nn.Parameter(torch.full((dim,), float(ls_init_value)))
+
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        """x (B, H, W, C).  ``plain=True`` runs the LN → MLP half in its
+        plain PyTorch version on any device."""
+        c = x.shape[-1]
+        fn = ln_mlp_reference if plain else fused_ln_mlp
+        out = fn(self.mixer(x).reshape(-1, c), x.reshape(-1, c), self.norm.weight,
+                 self.norm.bias, self.mlp.fc1.weight, self.mlp.fc1.bias,
+                 self.mlp.fc2.weight, self.mlp.fc2.bias, self.gamma)
+        return out.reshape(x.shape)
+
+
 class ConvNeXtStage(nn.Module):
-    def __init__(self, in_dim: int, dim: int, depth: int, downsample: bool):
+    def __init__(self, in_dim: int, dim: int, depth: int, downsample: bool,
+                 token_mixer: str = "dwconv7", mlp_ratio: float = 4.0):
         super().__init__()
         self.downsample = nn.Sequential(
             LayerNorm(in_dim, eps=1e-6),
             Conv2d(in_dim, dim, 2, stride=2),
         ) if downsample else None
-        self.blocks = nn.ModuleList(ConvNeXtBlock(dim) for _ in range(depth))
+        self.blocks = nn.ModuleList(
+            InceptionNeXtBlock(dim, mlp_ratio) if token_mixer == "inception"
+            else ConvNeXtBlock(dim) for _ in range(depth))
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         if self.downsample is not None:
@@ -148,12 +201,14 @@ class ConvNeXtBackbone(nn.Module):
 
     def __init__(self, depths: Sequence[int] = (2, 2, 6, 2),
                  dims: Sequence[int] = (64, 128, 256, 512),
-                 head_norm: bool = False):
+                 head_norm: bool = False, token_mixer: str = "dwconv7",
+                 mlp_ratio: float = 4.0):
         super().__init__()
         self.stem = nn.Sequential(Conv2d(3, dims[0], 4, stride=4),
                                   LayerNorm(dims[0], eps=1e-6))
         self.stages = nn.ModuleList(
-            ConvNeXtStage(dims[max(s - 1, 0)], dims[s], depths[s], s > 0)
+            ConvNeXtStage(dims[max(s - 1, 0)], dims[s], depths[s], s > 0, token_mixer,
+                          mlp_ratio)
             for s in range(len(depths)))
         self.head = nn.Sequential(GlobalAvgPool(), LayerNorm(dims[-1], eps=1e-6),
                                   nn.Flatten()) if head_norm else nn.Flatten()
@@ -174,11 +229,8 @@ def _final_map_size(image_size: int, n_stages: int) -> int:
 
 def backbone_from_config(config, head_norm: bool) -> ConvNeXtBackbone:
     spec = convnext_spec(config.get("model_kind", "convnext_nano.d1h_in1k"))
-    if spec.get("token_mixer", "dwconv7") != "dwconv7":
-        raise NotImplementedError(
-            "inceptionnext_* model kinds are not ported yet (ROADMAP "
-            "Queue A: InceptionMixer)")
-    return ConvNeXtBackbone(spec["depths"], spec["dims"], head_norm)
+    return ConvNeXtBackbone(spec["depths"], spec["dims"], head_norm,
+                            spec.get("token_mixer", "dwconv7"), spec.get("mlp_ratio", 4.0))
 
 
 class ConvNeXtClassifier(nn.Module):

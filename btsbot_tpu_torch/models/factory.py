@@ -1,7 +1,8 @@
 """Model construction by config name (port of btsbot_tpu.models.factory).
 
-Every family is ported except MaxViT / mm_MaxViT, which raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+Every family of the JAX package is ported: the CNNs, um_nn, ConvNeXt and
+mm_ConvNeXt (the ``convnext_*`` and ``inceptionnext_*`` kinds), MaxViT and
+mm_MaxViT, and frozen_fusion over any of their image branches.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from ..core.device import resolve_device
 from .cnn import MmCnn, UmCnn
 from .convnext import ConvNeXtClassifier, MmConvNeXt
 from .fusion import FrozenFusion
+from .maxvit import MaxViTClassifier, MmMaxViT
 from .mlp import UmNN
 
 MODEL_REGISTRY = {
@@ -21,12 +23,9 @@ MODEL_REGISTRY = {
     "um_nn": UmNN,
     "ConvNeXt": ConvNeXtClassifier,
     "mm_ConvNeXt": MmConvNeXt,
+    "MaxViT": MaxViTClassifier,
+    "mm_MaxViT": MmMaxViT,
     "frozen_fusion": FrozenFusion,
-}
-
-_NOT_PORTED = {
-    "MaxViT": "ROADMAP Queue A item 7 (MaxViT, the next slice)",
-    "mm_MaxViT": "ROADMAP Queue A item 7 (MaxViT, the next slice)",
 }
 
 
@@ -39,8 +38,6 @@ def build_model(config, dtype=torch.float32, device=None, seed: int = 0):
         config = normalize_config(config)
     dev = resolve_device(device)
     name = config["model_name"]
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"{name} is not ported yet: {_NOT_PORTED[name]}")
     try:
         cls = MODEL_REGISTRY[name]
     except KeyError:

@@ -8,9 +8,11 @@ concatenated features.  Head stripping per branch:
 * ``um_cnn`` → the flattened conv map (``image_branch.conv_layers``);
 * ``ConvNeXt`` → global pool + head LayerNorm (``image_branch.convnext``
   with ``head.1``), every block through the block kernel on the card;
+* ``MaxViT`` → resize to the branch's own native size, backbone, global
+  pool (``image_branch.maxvit``, no head parameters; its BatchNorm
+  statistics come with the branch);
 * ``um_nn`` → BatchNorm → fc1 → ReLU → Dropout → fc2, with no trailing
-  ReLU (``meta_branch.network.{0,1,4}``);
-* ``MaxViT`` is not ported yet (ROADMAP Queue A item 7).
+  ReLU (``meta_branch.network.{0,1,4}``).
 
 Freezing is the train state's business (engine.state): the optimizer takes
 only the combined head's parameters.  The branches keep their standalone
@@ -28,12 +30,13 @@ import torch
 from torch import nn
 
 from ..core.config import normalize_config
+from ..ops.resize import resize_bilinear
 from .cnn import CnnBackbone, cnn_feature_size
 from .common import CombinedHead, MetadataBranch, check_inputs
 from .convnext import backbone_from_config, convnext_spec
-
-_MAXVIT = ("MaxViT branches of frozen_fusion are not ported yet (ROADMAP "
-           "Queue A item 7: MaxViT)")
+from .maxvit import backbone_from_config as maxvit_backbone_from_config
+from .maxvit import feature_size as maxvit_feature_size
+from .maxvit import image_size as maxvit_image_size
 
 
 def resolve_fusion_config(config) -> dict:
@@ -62,13 +65,17 @@ class ImageFeatures(nn.Module):
             self.n_features = convnext_spec(branch_config.get(
                 "model_kind", "convnext_nano.d1h_in1k"))["dims"][-1]
         elif self.kind == "MaxViT":
-            raise NotImplementedError(_MAXVIT)
+            self.maxvit = maxvit_backbone_from_config(branch_config)
+            self.image_size = maxvit_image_size(branch_config)
+            self.n_features = maxvit_feature_size(branch_config)
         else:
             raise ValueError(f"Model {self.kind} not supported as fusion image branch")
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         if self.kind == "um_cnn":
             return self.conv_layers(x)
+        if self.kind == "MaxViT":
+            return self.maxvit(resize_bilinear(x, self.image_size))
         return self.convnext(x, plain)
 
 
@@ -120,11 +127,12 @@ def _branch_entries(name: str, sd: dict) -> dict:
         head = tuple(f"convnext.head.{i}." for i in (3, 5, 8))
         return {f"image_branch.{k}": v for k, v in sd.items()
                 if k.startswith("convnext.") and not k.startswith(head)}
+    if name == "MaxViT":
+        return {f"image_branch.{k}": v for k, v in sd.items()
+                if k.startswith("maxvit.") and not k.startswith("maxvit.head.")}
     if name == "um_nn":
         keep = tuple(f"network.{i}." for i in (0, 1, 4))
         return {f"meta_branch.{k}": v for k, v in sd.items() if k.startswith(keep)}
-    if name == "MaxViT":
-        raise NotImplementedError(_MAXVIT)
     raise ValueError(f"Model {name} not supported as fusion branch")
 
 

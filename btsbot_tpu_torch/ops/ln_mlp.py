@@ -10,7 +10,8 @@ Port of btsbot_tpu/ops/pallas_mlp.py.  Three things live here:
   CUDA tensor it launches the kernel (and counts the launch in
   ``fused_ln_mlp.launches``) or raises; only a CPU tensor takes the plain
   version.  Its backward recomputes the plain version, as the JAX custom VJP
-  does (pallas_mlp.py:128-131);
+  does (pallas_mlp.py:128-131).  Every ``inceptionnext_*`` block calls it
+  (models.convnext.InceptionNeXtBlock), at hidden width ratio·C;
 * ``fast_convnext_block`` / ``fast_convnext_backbone`` /
   ``fast_mm_convnext_logits`` — a full eval-mode mm_ConvNeXt forward from a
   reference-named state dict, with the depthwise, stem and downsample

@@ -16,7 +16,8 @@ convnext_pico, 63×63×3 triplets + 25 metadata features) on the card:
 2. each kernel against its plain PyTorch version at the four pico stage
    shapes at batch 3072, in float32 (rtol 1e-4 / atol 1e-5: summation order)
    and bfloat16 (rtol = atol = 3e-2: two bf16 roundings), with CUDA-event
-   times of both and the bound of the work on an H100; then ragged sizes
+   times of both and the bound of the work on an H100, ``fused_ln_mlp``
+   also at hidden 2C (the ``inceptionnext_*.r2`` blocks); then ragged sizes
    (batch 7, batch 1, and sizes one row short of and one row past a tile
    edge, the tile's height asked of the built library), and maps too wide
    for the block kernel to keep its input tile in shared memory;
@@ -58,9 +59,30 @@ convnext_pico, 63×63×3 triplets + 25 metadata features) on the card:
    for 1 epoch from those two run directories with its branch parameters
    bit-identical afterwards; alerts/s and mm_cnn's train steps/s
    (information only);
-8. a ``{"kernels": [...]}`` line, alerts/s for each scorer (information only);
-9. the card's name and power limit, then as the last line
-   ``{"ok": true, "device": {...}}``.
+8. MaxViT at ``maxvit_tiny_rw_224.sw_in1k`` full depth (no hand-written
+   kernel: cuBLAS / cuDNN; bias tables drawn at std 0.5), ``mm_MaxViT``
+   (metadata 128/128, combined 64/32) and the image-only ``MaxViT`` (256/32
+   head): f32 logits and pooled features on the card within rtol 1e-4 /
+   atol 1e-5 of the host's on 16 alerts; ``AlertScorer`` in bf16 at batch
+   1,024 and f32 at 512 on 2,148 alerts (bf16 within 0.01 of f32) with
+   alerts/s and peak memory; ``AlertStreamScorer`` on 1,024 packets (drop
+   masks identical to the array path's); the bf16 forward split with CUDA
+   events into stem, MBConvs, attention, MLPs and the rest beside each
+   part's FLOP bound; one f32 train step on the card against the host on 8
+   alerts (loss rtol 1e-4, running statistics 1e-5); ``cli.train`` for
+   mm_MaxViT, MaxViT and um_nn (1 epoch at batch 32 on 512 + 256 alerts),
+   train steps/s, then ``frozen_fusion`` over the MaxViT and um_nn runs with
+   its branch parameters bit-identical afterwards; the 224 ``best_model.pth``
+   loaded into ``maxvit_tiny_rw_160`` (bias tables resampled) scoring finite;
+9. InceptionNeXt: mm_ConvNeXt with ``inceptionnext_pico`` and
+   ``inceptionnext_pico.r2`` under both scorers at batch 3072 (12
+   ``fused_ln_mlp`` launches a batch, f32 within 1e-5 of the plain model,
+   bf16 within 0.01 of f32), the kernel's share of the bf16 forward, and
+   ``cli.train`` for ``.r2`` (1 epoch at batch 64, 12 launches a train step
+   and an eval batch);
+10. a ``{"kernels": [...]}`` line, alerts/s for each scorer (information only);
+11. the card's name and power limit, then as the last line
+    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero and prints no result.  So does a host
 without CUDA, and a directory without the port beside this script.
@@ -201,9 +223,10 @@ def phase_setup(state: dict) -> None:
 
 # ------------------------------ phase 2 ------------------------------
 
-def _block_inputs(side: int, c: int, dtype, seed: int, batch: int = BATCH):
-    """Block input and parameters at the scale of torch's default init,
-    with γ and the LN affine randomised."""
+def _block_inputs(side: int, c: int, dtype, seed: int, batch: int = BATCH,
+                  ratio: int = 4):
+    """Block input and parameters (MLP hidden width ratio·C) at the scale of
+    torch's default init, with γ and the LN affine randomised."""
     import torch
     g = torch.Generator(device=DEVICE).manual_seed(seed)
 
@@ -213,7 +236,7 @@ def _block_inputs(side: int, c: int, dtype, seed: int, batch: int = BATCH):
     def n(shape, std):
         return torch.randn(shape, generator=g, device=DEVICE) * std
 
-    hid = 4 * c
+    hid = ratio * c
     x = n((batch, side, side, c), 1.0)
     params = [u((c, 1, 7, 7), 1 / 7), u((c,), 1 / 7), 1 + n((c,), 0.1), n((c,), 0.1),
               u((hid, c), c ** -0.5), u((hid,), c ** -0.5),
@@ -243,7 +266,7 @@ def phase_kernels(state: dict) -> None:
     from btsbot_tpu_torch.ops.ln_mlp import fused_ln_mlp, ln_mlp_reference
 
     lib = _build.library()
-    results = {"convnext_block_fused": [], "fused_ln_mlp": []}
+    results = {"convnext_block_fused": [], "fused_ln_mlp": [], "fused_ln_mlp_r2": []}
     # the stage shapes keep their input tile in shared memory; wider maps
     # do not, and the block kernel reads x from device memory
     check(all(lib.btsbot_block_tiles_input(c, side, side) == 1
@@ -301,6 +324,26 @@ def phase_kernels(state: dict) -> None:
                       f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
                 check(ok, f"fused_ln_mlp matches its plain version ({dname}, C={c})")
 
+                # hidden 2C: the LN -> MLP half of an inceptionnext_*.r2 block
+                q2 = _block_inputs(side, c, dtype, seed=c + 1, batch=1, ratio=2)[1][2:]
+                got = fused_ln_mlp(h, res, *q2)
+                want = ln_mlp_reference(h, res, *q2)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                ok = torch.allclose(got.float(), want.float(), **TOL[dname])
+                ms = time_ms(lambda: fused_ln_mlp(h, res, *q2))
+                plain_ms = time_ms(lambda: ln_mlp_reference(h, res, *q2))
+                bound_ms, bound_by = _bound(
+                    3 * m * c * item + sum(t.numel() for t in q2) * item, mlp_ops / 2, dname)
+                results["fused_ln_mlp_r2"].append(dict(
+                    dtype=dname, shape=[m, c], depth=depth, max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
+                print(f"  fused_ln_mlp hidden 2C {dname} ({m},{c}): max|d|={err:.3g} "
+                      f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                      f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+                check(ok, f"fused_ln_mlp at hidden 2C matches its plain version "
+                          f"({dname}, C={c})")
+
                 # a partial batch: rows past the last full tile are masked
                 xr, mr = x[:7].contiguous(), 7 * side * side + 5
                 ok = torch.allclose(convnext_block_fused(xr, *p).float(),
@@ -350,16 +393,17 @@ def phase_kernels(state: dict) -> None:
 # ------------------------------ phase 3 ------------------------------
 
 def _randomise(model, seed: int) -> None:
-    """γ (init 1e-6 makes every block an identity) and the BN statistics
-    to seeded random values."""
+    """γ (init 1e-6 makes every block an identity), MaxViT's bias tables
+    (std 0.5, as tests/test_maxvit_fullspec.py draws them) and the BN
+    statistics to seeded random values."""
     import torch
     g = torch.Generator(device="cpu").manual_seed(seed)
     with torch.no_grad():
         for name, prm in model.named_parameters():
-            if name.endswith(".gamma"):
+            if name.endswith((".gamma", ".relative_position_bias_table")):
                 prm.copy_(torch.randn(prm.shape, generator=g) * 0.5)
         for bn in model.modules():
-            if isinstance(bn, torch.nn.BatchNorm1d):
+            if isinstance(bn, torch.nn.modules.batchnorm._BatchNorm):
                 bn.running_mean.copy_(torch.randn(bn.running_mean.shape, generator=g))
                 bn.running_var.copy_(torch.rand(bn.running_var.shape, generator=g) * 1.5
                                      + 0.5)
@@ -446,8 +490,6 @@ def phase_main_path(state: dict) -> None:
     from btsbot_tpu_torch import AlertScorer, AlertStreamScorer, native
     from btsbot_tpu_torch.engine.serve import _gather_metadata
     from btsbot_tpu_torch.models.factory import build_model
-    from btsbot_tpu_torch.ops.convnext_block import convnext_block_fused
-    from btsbot_tpu_torch.ops.ln_mlp import fused_ln_mlp
     from btsbot_tpu_torch.ops.preprocess import preprocess_triplets
 
     model = build_model(FLAGSHIP_CONFIG, dtype=torch.float32, device=DEVICE, seed=0)
@@ -481,8 +523,7 @@ def phase_main_path(state: dict) -> None:
     torch.cuda.synchronize()
 
     # ---- the counted run of the main path
-    convnext_block_fused.launches = 0
-    fused_ln_mlp.launches = 0
+    _zero_kernel_counts()
     timings, scores = {}, {}
     for name, sc in scorers.items():
         t0 = time.perf_counter()
@@ -493,8 +534,7 @@ def phase_main_path(state: dict) -> None:
     s_stream, d_stream = stream(packets)
     timings["AlertStreamScorer bf16"] = (len(packets), time.perf_counter() - t0)
     torch.cuda.synchronize()
-    launches = {"convnext_block_fused": convnext_block_fused.launches,
-                "fused_ln_mlp": fused_ln_mlp.launches}
+    launches = _kernel_counts()
     state["launches_main"] = launches
     batches = 2 * (_n_batches(n_big) + _n_batches(len(ex_trips))) + _n_batches(len(packets))
     print(f"  launches: {launches} over {batches} batches", flush=True)
@@ -544,8 +584,7 @@ def phase_main_path(state: dict) -> None:
 def phase_fast_path(state: dict) -> None:
     import numpy as np
     import torch
-    from btsbot_tpu_torch.ops.convnext_block import convnext_block_fused
-    from btsbot_tpu_torch.ops.ln_mlp import fast_mm_convnext_logits, fused_ln_mlp
+    from btsbot_tpu_torch.ops.ln_mlp import fast_mm_convnext_logits
 
     model, weights = state["model"], state["weights"]
     trips = torch.from_numpy(_normalised_triplets(BATCH, seed=6)).to(DEVICE)
@@ -554,12 +593,10 @@ def phase_fast_path(state: dict) -> None:
     with torch.inference_mode():
         want = model(trips, meta).reshape(-1)
         torch.cuda.synchronize()
-        convnext_block_fused.launches = 0
-        fused_ln_mlp.launches = 0
+        _zero_kernel_counts()
         got = fast_mm_convnext_logits(weights, trips, meta, FLAGSHIP_CONFIG)
         torch.cuda.synchronize()
-        launches = {"convnext_block_fused": convnext_block_fused.launches,
-                    "fused_ln_mlp": fused_ln_mlp.launches}
+        launches = _kernel_counts()
     state["launches_fast"] = launches
     print(f"  launches: {launches}", flush=True)
     check(launches["fused_ln_mlp"] == 12, "12 fused_ln_mlp launches")
@@ -747,7 +784,7 @@ def _step_split(config, weights, batch, iters: int = 10):
     return out
 
 
-def _profile(fn, label: str, iters: int = 5) -> None:
+def _profile(fn, label: str, iters: int = 5, top: int = 10) -> None:
     """Kernel time by name over ``iters`` calls of ``fn`` with
     ``torch.profiler``, and the device's busy share of the wall time
     (information only)."""
@@ -775,7 +812,7 @@ def _profile(fn, label: str, iters: int = 5) -> None:
     print(f"  profile, {label}: {wall_ms:.3f} ms a call (host clock, profiler on), device "
           f"busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f} %), "
           f"{sum(e.count for e in kernels) / iters:.0f} kernels a call", flush=True)
-    for e in sorted(kernels, key=lambda e: e.device_time_total, reverse=True)[:10]:
+    for e in sorted(kernels, key=lambda e: e.device_time_total, reverse=True)[:top]:
         print(f"    {e.device_time_total / 1e3 / iters:8.3f} ms  x{e.count / iters:4.0f}  "
               f"{e.key[:110]}", flush=True)
 
@@ -922,7 +959,9 @@ def phase_train(state: dict) -> None:
 FIXTURE_DIR = os.path.join(ROOT, "tests", "fixtures", "ref_trained_mm_cnn")
 FAMILY_ALERTS = BATCH + 500          # a full batch and a partial one
 CPU_ALERTS = 256                     # the conv families' f32 check on the host
-BLOCK_FAMILIES = ("ConvNeXt", "frozen_fusion")
+# the kernel each family's forward launches 12 times (the others launch none)
+KERNEL_OF = {"ConvNeXt": "convnext_block_fused", "frozen_fusion": "convnext_block_fused",
+             "inceptionnext_pico": "fused_ln_mlp", "inceptionnext_pico.r2": "fused_ln_mlp"}
 
 
 def _family_configs() -> dict:
@@ -1032,6 +1071,20 @@ def _conv_work(config) -> list:
             for px, cin, cout in shapes]
 
 
+def _kernel_counts() -> dict:
+    from btsbot_tpu_torch.ops.convnext_block import convnext_block_fused
+    from btsbot_tpu_torch.ops.ln_mlp import fused_ln_mlp
+    return {"convnext_block_fused": convnext_block_fused.launches,
+            "fused_ln_mlp": fused_ln_mlp.launches}
+
+
+def _zero_kernel_counts() -> None:
+    from btsbot_tpu_torch.ops.convnext_block import convnext_block_fused
+    from btsbot_tpu_torch.ops.ln_mlp import fused_ln_mlp
+    convnext_block_fused.launches = 0
+    fused_ln_mlp.launches = 0
+
+
 def _serve_family(name, config, trips, meta) -> dict:
     """Both scorers at batch 3072 on the card (counted), their checks, and
     the throughputs."""
@@ -1040,7 +1093,6 @@ def _serve_family(name, config, trips, meta) -> dict:
     from btsbot_tpu_torch import AlertScorer
     from btsbot_tpu_torch.core.config import normalize_config
     from btsbot_tpu_torch.models.factory import build_model
-    from btsbot_tpu_torch.ops.convnext_block import convnext_block_fused
 
     cfg = normalize_config(config)
     trips = trips if cfg.need_triplets else None
@@ -1055,18 +1107,18 @@ def _serve_family(name, config, trips, meta) -> dict:
         sc(*(None if x is None else x[:BATCH] for x in (trips, meta)))
         sc(*(None if x is None else x[BATCH:] for x in (trips, meta)))
     torch.cuda.synchronize()
-    convnext_block_fused.launches = 0
+    _zero_kernel_counts()
     scores = {k: sc(trips, meta) for k, sc in scorers.items()}
     torch.cuda.synchronize()
-    launches = convnext_block_fused.launches
-    want = (12 if name in BLOCK_FAMILIES else 0) * 2 * _n_batches(FAMILY_ALERTS)
-    print(f"  {name}: {launches} block-kernel launches over "
-          f"{2 * _n_batches(FAMILY_ALERTS)} batches", flush=True)
-    check(launches == want, f"{name}: {want // (2 * _n_batches(FAMILY_ALERTS))} block-kernel "
-                            f"launches a batch")
+    counts = _kernel_counts()
+    batches = 2 * _n_batches(FAMILY_ALERTS)
+    want = {k: 12 * batches if KERNEL_OF.get(name) == k else 0 for k in counts}
+    print(f"  {name}: launches {counts} over {batches} batches", flush=True)
+    check(counts == want, f"{name}: " + ", ".join(
+        f"{n // batches} {k} launches a batch" for k, n in want.items()))
     check(all(bool(np.all(np.isfinite(v))) for v in scores.values())
           and scores["f32"].shape == (FAMILY_ALERTS,), f"{name}: finite scores")
-    if name in BLOCK_FAMILIES:
+    if name in KERNEL_OF:
         ref = _plain_scores(model, trips, meta, BATCH)
         d = float(np.abs(scores["f32"] - ref).max())
         print(f"  {name}: f32 kernel path vs plain model: max|d|={d:.3g}", flush=True)
@@ -1088,21 +1140,21 @@ def _serve_family(name, config, trips, meta) -> dict:
     print(f"  {name}: forward on device-resident inputs, batch {BATCH}: bf16 "
           f"{rates['bf16']:.1f} alerts/s, f32 {rates['f32']:.1f} alerts/s on "
           f"{gpu_line()}", flush=True)
-    return {"model": model, "weights": weights, "launches": launches, "rates": rates,
+    return {"model": model, "weights": weights, "launches": counts, "rates": rates,
             "scorer_bf16": scorers["bf16"]}
 
 
-def _stream_family(name, config, weights, scorer_bf16) -> None:
-    """AlertStreamScorer on BATCH packets (three of them bad) against the
-    array path on the same decoded alerts."""
+def _stream_family(name, config, weights, scorer_bf16, batch: int = BATCH) -> None:
+    """AlertStreamScorer at ``batch`` on ``batch`` packets (three of them
+    bad) against the array path on the same decoded alerts."""
     import numpy as np
     import torch
     from btsbot_tpu_torch import AlertStreamScorer
     from btsbot_tpu_torch.engine.serve import _gather_metadata
     from btsbot_tpu_torch.ops.preprocess import preprocess_triplets
 
-    stream = AlertStreamScorer(config, weights, batch_size=BATCH, device=DEVICE)
-    packets = _packets(BATCH, seed=21)
+    stream = AlertStreamScorer(config, weights, batch_size=batch, device=DEVICE)
+    packets = _packets(batch, seed=21)
     s_stream, d_stream = stream(packets)
     raw, meta, decode_bad = stream._prepare(packets)
     if raw is None:  # metadata only: no stamp decoded, nothing dropped
@@ -1148,36 +1200,55 @@ def _fixture_on_card() -> None:
           "atol 1e-5)")
 
 
-def _train_family(config, name, data_dir, out_root, run_name) -> tuple:
-    """cli.train on the smoke split; (result, seconds, block launches)."""
+def _train_family(config, name, data_dir, out_root, run_name,
+                  alerts: tuple | None = None) -> tuple:
+    """cli.train on a split of ``alerts`` (train, val; default the smoke
+    split's); (result, seconds, {kernel: launches}), with 12 launches of the
+    family's kernel (KERNEL_OF) per train step and eval batch checked."""
     import numpy as np
     import torch
     from btsbot_tpu_torch.cli.train import main as train_cli
-    from btsbot_tpu_torch.ops.convnext_block import convnext_block_fused
 
     path = os.path.join(out_root, f"{run_name}.json")
     os.makedirs(out_root, exist_ok=True)
     with open(path, "w") as f:
         json.dump(config, f)
     torch.cuda.synchronize()
-    convnext_block_fused.launches = 0
+    _zero_kernel_counts()
     t0 = time.perf_counter()
     result = train_cli([path, "--data-dir", data_dir, "--out-root", out_root,
                         "--run-name", run_name, "--device", DEVICE])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = convnext_block_fused.launches
+    counts = _kernel_counts()
     hist = result["history"]
     check(len(hist["train_loss"]) == config["epochs"] and all(
         np.all(np.isfinite(hist[k])) for k in ("train_loss", "val_loss")),
         f"{name}: cli.train ran {config['epochs']} epoch(s) with finite train and val "
-        f"losses ({secs:.1f} s, {launches} block launches)")
-    steps = TRAIN_ALERTS // config["batch_size"] * config["epochs"]
-    evals = -(-VAL_ALERTS // config["batch_size"]) * config["epochs"]
-    want = 12 * (steps + evals) if name in BLOCK_FAMILIES else 0
-    check(launches == want, f"{name}: {want} block launches in training ({steps} steps + "
-                            f"{evals} eval batches)")
-    return result, secs, launches
+        f"losses ({secs:.1f} s, launches {counts})")
+    alerts = alerts or (TRAIN_ALERTS, VAL_ALERTS)
+    steps = alerts[0] // config["batch_size"] * config["epochs"]
+    evals = -(-alerts[1] // config["batch_size"]) * config["epochs"]
+    want = {k: 12 * (steps + evals) if KERNEL_OF.get(name) == k else 0 for k in counts}
+    check(counts == want, f"{name}: launches {want} in training ({steps} steps + "
+                          f"{evals} eval batches)")
+    return result, secs, counts
+
+
+def _branches_kept(result, dirs: dict) -> bool:
+    """Every branch parameter of a trained fusion run equal, bit for bit, to
+    its branch run's (``dirs``: prefix → run directory)."""
+    import torch
+    from btsbot_tpu_torch.engine.checkpoint import load_model_checkpoint
+
+    trained = load_model_checkpoint(None, result["model_dir"])
+    same = True
+    for prefix, model_dir in dirs.items():
+        branch = load_model_checkpoint(None, model_dir)
+        for key, _ in result["model"].named_parameters():
+            if key.startswith(prefix):
+                same &= torch.equal(trained[key], branch[key[len(prefix):]])
+    return same
 
 
 def phase_families(state: dict) -> None:
@@ -1198,7 +1269,7 @@ def phase_families(state: dict) -> None:
     served, launches, rates = {}, {}, {}
     for name, config in configs.items():
         served[name] = _serve_family(name, config, trips, meta)
-        launches[f"{name} serving"] = served[name]["launches"]
+        launches[f"{name} serving"] = served[name]["launches"]["convnext_block_fused"]
         rates[name] = served[name]["rates"]
     for name in ("mm_cnn", "um_nn"):
         _stream_family(name, configs[name], served[name]["weights"],
@@ -1235,7 +1306,7 @@ def phase_families(state: dict) -> None:
     train_launches = 0
     mm = {**configs["mm_cnn"], "epochs": 2}
     result, secs, n = _train_family(mm, "mm_cnn", data_dir, out_root, "mm_cnn")
-    train_launches += n
+    train_launches += n["convnext_block_fused"]
     cfg = normalize_config(mm)
     model = build_model(cfg, device=DEVICE)
     model.load_state_dict(load_model_checkpoint(cfg, result["model_dir"]), strict=True)
@@ -1247,21 +1318,16 @@ def phase_families(state: dict) -> None:
     for name in ("ConvNeXt", "um_nn"):
         r, _, n = _train_family(configs[name], name, data_dir, out_root, name)
         branch_dirs[name] = r["model_dir"]
-        train_launches += n
+        train_launches += n["convnext_block_fused"]
     fusion = {k: v for k, v in configs["frozen_fusion"].items()
               if k not in ("image_model_config", "meta_model_config")}
     fusion.update(image_model_dir=branch_dirs["ConvNeXt"], meta_model_dir=branch_dirs["um_nn"])
     r, fusion_secs, n = _train_family(fusion, "frozen_fusion", data_dir, out_root, "fusion")
-    train_launches += n
-    trained = load_model_checkpoint(None, r["model_dir"])
-    same = True
-    for prefix, name in (("image_branch.", "ConvNeXt"), ("meta_branch.", "um_nn")):
-        branch = load_model_checkpoint(None, branch_dirs[name])
-        for key, value in r["model"].named_parameters():
-            if key.startswith(prefix):
-                same &= torch.equal(trained[key], branch[key[len(prefix):]])
-    check(same, "frozen_fusion: every branch parameter bit-identical to its branch run's "
-                "best_model.pth after training")
+    train_launches += n["convnext_block_fused"]
+    check(_branches_kept(r, {"image_branch.": branch_dirs["ConvNeXt"],
+                             "meta_branch.": branch_dirs["um_nn"]}),
+          "frozen_fusion: every branch parameter bit-identical to its branch run's "
+          "best_model.pth after training")
 
     # ---- mm_cnn train steps/s at batch 64 (information only)
     train = load_split(cfg, "train", data_dir)
@@ -1282,6 +1348,424 @@ def phase_families(state: dict) -> None:
 
 
 # ------------------------------ phase 8 ------------------------------
+
+MAXVIT_KIND = "maxvit_tiny_rw_224.sw_in1k"
+MAXVIT_BATCH = {"bf16": 1024, "f32": 512}    # the 6.6 GB first MBConv map caps it
+MAXVIT_ALERTS = 2 * MAXVIT_BATCH["bf16"] + 100
+MAXVIT_HOST_ALERTS = 16                       # f32 on the card against the host
+MAXVIT_SPLIT = (512, 256)                     # cli.train's train and val alerts
+MAXVIT_TRAIN_BATCH = 32
+
+
+def _maxvit_configs() -> dict:
+    """mm_MaxViT as tests/test_maxvit_fullspec.py:24-35 builds it (metadata
+    128/128, combined 64/32) and the image-only MaxViT with a 256/32 head,
+    both maxvit_tiny_rw_224.sw_in1k at full depth, with the flagship's
+    training settings at batch 32; um_nn (production widths) for the fusion."""
+    train = {k: FLAGSHIP_CONFIG[k] for k in ("learning_rate", "beta_1", "beta_2",
+                                             "warmup_epochs", "random_seed",
+                                             "metadata_cols", "train_data_version")}
+    train.update(batch_size=MAXVIT_TRAIN_BATCH, epochs=1, patience=5, pretrained=False)
+    return {
+        "mm_MaxViT": {"model_name": "mm_MaxViT", "model_kind": MAXVIT_KIND,
+                      "meta_fc1_neurons": 128, "meta_fc2_neurons": 128,
+                      "meta_dropout": 0.25, "comb_fc1_neurons": 64,
+                      "comb_fc2_neurons": 32, "comb_dropout": 0.2, **train},
+        "MaxViT": {"model_name": "MaxViT", "model_kind": MAXVIT_KIND, "fc1_neurons": 256,
+                   "fc2_neurons": 32, "dropout": 0.2, **train},
+        "um_nn": {**_family_configs()["um_nn"], "batch_size": MAXVIT_TRAIN_BATCH},
+    }
+
+
+def _maxvit_flops(model, images, meta) -> dict:
+    """FLOPs of one forward by part (torch.utils.flop_counter, products and
+    convs only): stem, MBConvs, attention (window + grid), MLPs, total."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    parts = {"stem": re.compile(r"\.stem$"), "MBConv": re.compile(r"blocks\.\d+\.conv$"),
+             "attention": re.compile(r"attn_(block|grid)\.attn$"),
+             "MLP": re.compile(r"attn_(block|grid)\.mlp$")}
+    with torch.inference_mode(), FlopCounterMode(display=False) as counter:
+        model(images, meta)
+    out = {k: 0 for k in parts}
+    for name, ops in counter.get_flop_counts().items():
+        for part, pattern in parts.items():
+            if pattern.search(name):
+                out[part] += sum(ops.values())
+    out["total"] = counter.get_total_flops()
+    return out
+
+
+def _maxvit_split(sc, images, meta, iters: int = 5) -> dict:
+    """ms of the scorer's forward split with CUDA events into the stem, the
+    MBConvs, the attention (window + grid), the MLPs and everything else
+    (resize, LayerNorms, partitions, residuals, pool, heads, sigmoid)."""
+    import torch
+    from btsbot_tpu_torch.models import maxvit as mx
+
+    kinds = {mx.Stem: "stem", mx.MBConv: "MBConv", mx.RelPosAttention: "attention",
+             mx.TransformerMlp: "MLP"}
+    spans = {k: [] for k in kinds.values()}
+    handles = []
+
+    def pre(module, args):
+        module._t0 = torch.cuda.Event(enable_timing=True)
+        module._t0.record()
+
+    def post(module, args, out):
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        spans[kinds[type(module)]].append((module._t0, end))
+
+    for _ in range(2):
+        sc._score(images, meta)
+    for module in sc.model.modules():
+        if type(module) in kinds:
+            handles += [module.register_forward_pre_hook(pre),
+                        module.register_forward_hook(post)]
+    whole = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    try:
+        torch.cuda.synchronize()
+        whole[0].record()
+        for _ in range(iters):
+            sc._score(images, meta)
+        whole[1].record()
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    out = {k: sum(a.elapsed_time(b) for a, b in v) / iters for k, v in spans.items()}
+    out["forward"] = whole[0].elapsed_time(whole[1]) / iters
+    out["rest"] = out["forward"] - sum(out[k] for k in kinds.values())
+    return out
+
+
+def _maxvit_features(model, images):
+    """The pooled final map of a MaxViT / mm_MaxViT (the head's input)."""
+    from btsbot_tpu_torch.ops.resize import resize_bilinear
+
+    backbone = model.maxvit_backbone if hasattr(model, "maxvit_backbone") else model.maxvit
+    x = backbone.stem(resize_bilinear(images, model.image_size))
+    for stage in backbone.stages:
+        x = stage(x)
+    return x.mean(dim=(1, 2))
+
+
+def _serve_maxvit(name, config, trips, meta, state) -> dict:
+    """f32 card against host on 16 alerts; both scorers (bf16 at batch 1,024,
+    f32 at 512) on 2 × 1,024 + 100 alerts, their checks, rates and peak
+    memory; the bf16 forward's split against each part's FLOP bound."""
+    import numpy as np
+    import torch
+    from btsbot_tpu_torch import AlertScorer
+    from btsbot_tpu_torch.core.config import normalize_config
+    from btsbot_tpu_torch.models.factory import build_model
+
+    cfg = normalize_config(config)
+    meta = meta if cfg.need_metadata else None
+    model = build_model(cfg, dtype=torch.float32, device=DEVICE, seed=0)
+    _randomise(model, seed=1)
+    weights = model.state_dict()
+
+    # ---- f32 on the card against f32 on the host
+    host = build_model(cfg, dtype=torch.float32, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in weights.items()}, strict=True)
+    n = MAXVIT_HOST_ALERTS
+    img = torch.from_numpy(trips[:n])
+    m = None if meta is None else torch.from_numpy(meta[:n])
+    with torch.inference_mode():
+        got = [model(img.to(DEVICE), None if m is None else m.to(DEVICE)).cpu(),
+               _maxvit_features(model, img.to(DEVICE)).cpu()]
+        want = [host(img, m), _maxvit_features(host, img)]
+    # a random MaxViT's logits move little from alert to alert, so the
+    # pooled features (which do) are held too
+    spread = float(want[1].std(dim=0).mean())
+    print(f"  {name}: f32 card vs host on {n} alerts: logits max|d|="
+          f"{float((got[0] - want[0]).abs().max()):.3g}, pooled features max|d|="
+          f"{float((got[1] - want[1]).abs().max()):.3g} (their spread over alerts "
+          f"{spread:.3g})", flush=True)
+    check(all(bool(torch.allclose(a, b, rtol=1e-4, atol=1e-5)) for a, b in zip(got, want))
+          and spread > 1e-3,
+          f"{name}: f32 logits and pooled features on the card within rtol 1e-4 / atol "
+          f"1e-5 of the host's")
+    del host
+
+    # ---- both scorers
+    scorers = {k: AlertScorer(cfg, weights, batch_size=b, device=DEVICE,
+                              dtype=torch.bfloat16 if k == "bf16" else torch.float32)
+               for k, b in MAXVIT_BATCH.items()}
+    scores, memory, e2e = {}, {}, {}
+    for k, sc in scorers.items():
+        b = MAXVIT_BATCH[k]
+        sc(trips[:b], None if meta is None else meta[:b])          # warm both buckets
+        sc(trips[:100], None if meta is None else meta[:100])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        scores[k] = sc(trips, meta)
+        torch.cuda.synchronize()
+        e2e[k] = len(trips) / (time.perf_counter() - t0)
+        memory[k] = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(bool(np.all(np.isfinite(v))) and v.shape == (len(trips),)
+              for v in scores.values()), f"{name}: finite scores from both scorers")
+    d16 = float(np.abs(scores["bf16"] - scores["f32"]).max())
+    print(f"  {name}: bf16 vs f32 scores on {len(trips)} alerts: max|d|={d16:.3g}",
+          flush=True)
+    check(d16 <= 0.01, f"{name}: bf16 scores within 0.01 of f32")
+    rates = {k: sc.throughput(iters=5) for k, sc in scorers.items()}
+    for k in scorers:
+        print(f"  {name} AlertScorer {k} batch {MAXVIT_BATCH[k]}: {rates[k]:.1f} alerts/s on "
+              f"device-resident inputs, {e2e[k]:.1f} alerts/s end to end, peak memory "
+              f"{memory[k]:.2f} GiB (max_memory_allocated) on {state['gpu']}", flush=True)
+
+    # ---- the bf16 forward by part, beside each part's FLOP bound
+    b = MAXVIT_BATCH["bf16"]
+    g = torch.Generator(device="cpu").manual_seed(0)
+    images = torch.randn(b, 63, 63, 3, generator=g).to(DEVICE)
+    meta_t = (None if meta is None
+              else torch.randn(b, len(META_COLS), generator=g).to(DEVICE))
+    split = _maxvit_split(scorers["bf16"], images, meta_t)
+    try:
+        flops = _maxvit_flops(scorers["bf16"].model, images[:1].bfloat16(),
+                              None if meta_t is None else meta_t[:1].bfloat16())
+    except Exception as e:  # noqa: BLE001 — information only
+        print(f"  flop counter failed ({e!r}); bounds not measured", flush=True)
+        flops = None
+    parts = ("stem", "MBConv", "attention", "MLP")
+    line = f"  {name} bf16 forward batch {b}: {split['forward']:.3f} ms = " + " + ".join(
+        f"{p} {split[p]:.3f}" for p in parts) + f" + everything else {split['rest']:.3f}"
+    if flops:
+        line += ("; FLOP bound at 989 TFLOP/s " + ", ".join(
+            f"{p} {flops[p] * b / PEAK_OPS['bfloat16'] * 1e3:.3f}" for p in parts)
+            + f", whole {flops['total'] * b / PEAK_OPS['bfloat16'] * 1e3:.3f} ms "
+            f"({flops['total'] / 1e9:.2f} GFLOP an alert)")
+    print(line + f" on {state['gpu']}", flush=True)
+    if name == "mm_MaxViT":
+        try:
+            _profile(lambda: scorers["bf16"]._score(images, meta_t),
+                     f"{name} bf16 forward batch {b}", iters=3, top=16)
+        except Exception as e:  # noqa: BLE001 — information only
+            print(f"  profiler failed ({e!r}); not measured", flush=True)
+    return {"model": model, "weights": weights, "rates": rates, "e2e": e2e,
+            "memory": memory, "split": split, "flops": flops,
+            "scorer_bf16": scorers["bf16"]}
+
+
+def _host_vs_card_step(config, weights, batch) -> None:
+    """One f32 train step of the same weights on the card and on the host,
+    dropout and augmentation off: loss rtol 1e-4, running statistics 1e-5."""
+    import torch
+    from btsbot_tpu_torch.core.config import normalize_config
+    from btsbot_tpu_torch.engine.state import create_train_state
+    from btsbot_tpu_torch.engine.steps import make_train_step
+    from btsbot_tpu_torch.models.factory import build_model
+
+    cfg = normalize_config({**config, "meta_dropout": 0.0, "comb_dropout": 0.0,
+                            "data_aug_h_flip": 0, "data_aug_v_flip": 0, "data_aug_rot": 0})
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        model = build_model(cfg, device=dev)
+        model.load_state_dict({k: v.to(dev) for k, v in weights.items()}, strict=True)
+        st = create_train_state(cfg, model, steps_per_epoch=1)
+        m = make_train_step(cfg)(st, *(t.to(dev) for t in batch[:3]), batch[3])
+        out[dev] = (m["loss"].item(), {k: v.detach().cpu() for k, v in
+                                       model.state_dict().items() if "running_" in k})
+    (loss_c, stats_c), (loss_h, stats_h) = out[DEVICE], out["cpu"]
+    d = max(float((stats_c[k] - stats_h[k]).abs().max()) for k in stats_h)
+    ok = all(torch.allclose(stats_c[k], stats_h[k], rtol=1e-5, atol=1e-5) for k in stats_h)
+    print(f"  mm_MaxViT one f32 step on {len(batch[0])} alerts: loss {loss_c:.8f} card / "
+          f"{loss_h:.8f} host; {len(stats_h)} running statistics, max|d|={d:.3g}",
+          flush=True)
+    check(abs(loss_c - loss_h) <= 1e-4 * abs(loss_h) and ok,
+          "mm_MaxViT train step: card loss within rtol 1e-4 of the host's, running "
+          "statistics within 1e-5")
+
+
+def phase_maxvit(state: dict) -> None:
+    """MaxViT / mm_MaxViT at maxvit_tiny_rw_224 (no hand-written kernel:
+    cuBLAS and cuDNN): serving, training, a fusion over a MaxViT run and
+    the 224 → 160 retarget."""
+    import numpy as np
+    import torch
+    from btsbot_tpu_torch import AlertScorer
+    from btsbot_tpu_torch.core.config import normalize_config
+    from btsbot_tpu_torch.data.dataset import load_split
+    from btsbot_tpu_torch.engine.checkpoint import load_model_checkpoint
+    from btsbot_tpu_torch.engine.eval import predict_dataset
+    from btsbot_tpu_torch.engine.state import create_train_state
+    from btsbot_tpu_torch.engine.steps import make_train_step
+    from btsbot_tpu_torch.models.factory import build_model
+    from btsbot_tpu_torch.models.maxvit import maxvit_spec
+
+    configs = _maxvit_configs()
+    # unit-normal pixels, as tests/test_maxvit_fullspec.py draws them: at the
+    # L2-normalised scale (~1/63) a random-weight MaxViT's logits barely move
+    trips = np.random.default_rng(31).normal(size=(MAXVIT_ALERTS, 63, 63, 3)).astype(
+        np.float32)
+    meta = np.random.default_rng(32).normal(size=(MAXVIT_ALERTS, len(META_COLS))).astype(
+        np.float32)
+    _zero_kernel_counts()
+    served = {name: _serve_maxvit(name, configs[name], trips, meta, state)
+              for name in ("mm_MaxViT", "MaxViT")}
+    _stream_family("mm_MaxViT", configs["mm_MaxViT"], served["mm_MaxViT"]["weights"],
+                   served["mm_MaxViT"]["scorer_bf16"], batch=MAXVIT_BATCH["bf16"])
+    counts = _kernel_counts()
+    check(counts == {k: 0 for k in counts}, f"MaxViT serving launches no block kernel "
+                                           f"({counts})")
+
+    # ---- training
+    tmp, _ = _smoke_split(state)
+    data_dir = os.path.join(tmp, "maxvit_data")
+    os.makedirs(data_dir, exist_ok=True)
+    _write_split(data_dir, "train", MAXVIT_SPLIT[0], seed=33)
+    _write_split(data_dir, "val", MAXVIT_SPLIT[1], seed=34)
+    cfg = normalize_config(configs["mm_MaxViT"])
+    train = load_split(cfg, "train", data_dir)
+    n = 8
+    batch = (torch.from_numpy(train.images[:n]), torch.from_numpy(train.metadata[:n]),
+             torch.from_numpy(train.labels[:n]), train.pos_weight)
+    _host_vs_card_step(configs["mm_MaxViT"], served["mm_MaxViT"]["weights"], batch)
+
+    out_root = os.path.join(tmp, "maxvit_runs")
+    runs = {}
+    for name in ("mm_MaxViT", "MaxViT", "um_nn"):
+        runs[name] = _train_family(configs[name], name, data_dir, out_root, name,
+                                   alerts=MAXVIT_SPLIT)
+    mm_result, mm_secs, _ = runs["mm_MaxViT"]
+    model = build_model(cfg, device=DEVICE)
+    model.load_state_dict(load_model_checkpoint(cfg, mm_result["model_dir"]), strict=True)
+    _, scores = predict_dataset(model, cfg, load_split(cfg, "val", data_dir))
+    d = float(np.abs(scores - mm_result["best_val_scores"]).max())
+    check(d <= 1e-6, f"mm_MaxViT best_model.pth loads strict and scores the val split "
+                     f"within 1e-6 of the trainer's best epoch (max|d|={d:.3g})")
+    b = MAXVIT_TRAIN_BATCH
+    step_batch = tuple(torch.from_numpy(x[:b]).to(DEVICE) for x in
+                       (train.images, train.metadata, train.labels)) + (train.pos_weight,)
+    step_ms = {}
+    for dname in ("float32", "bfloat16"):
+        c = normalize_config({**configs["mm_MaxViT"], "compute_dtype": dname})
+        m = build_model(c, device=DEVICE)
+        m.load_state_dict(served["mm_MaxViT"]["weights"])
+        st = create_train_state(c, m, steps_per_epoch=16)
+        step = make_train_step(c)
+        step_ms[dname] = time_ms(lambda: step(st, *step_batch), iters=5, warmup=2)
+        print(f"  mm_MaxViT train step batch {b} {dname}: {step_ms[dname]:.3f} ms = "
+              f"{1e3 / step_ms[dname]:.2f} steps/s, {b * 1e3 / step_ms[dname]:.1f} "
+              f"alerts/s on {state['gpu']}", flush=True)
+        del st, m
+    print(f"  mm_MaxViT cli.train 1 epoch ({MAXVIT_SPLIT[0] // b} steps + "
+          f"{-(-MAXVIT_SPLIT[1] // b)} eval batches): {mm_secs:.1f} s", flush=True)
+
+    # ---- frozen_fusion over the MaxViT and um_nn runs
+    fusion = {k: v for k, v in _family_configs()["frozen_fusion"].items()
+              if k not in ("image_model_config", "meta_model_config")}
+    fusion.update(image_model_dir=runs["MaxViT"][0]["model_dir"],
+                  meta_model_dir=runs["um_nn"][0]["model_dir"],
+                  batch_size=MAXVIT_TRAIN_BATCH)
+    r, fusion_secs, _ = _train_family(fusion, "frozen_fusion over MaxViT", data_dir,
+                                      out_root, "fusion_maxvit", alerts=MAXVIT_SPLIT)
+    check(_branches_kept(r, {"image_branch.": runs["MaxViT"][0]["model_dir"],
+                             "meta_branch.": runs["um_nn"][0]["model_dir"]}),
+          "frozen_fusion over MaxViT: every branch parameter bit-identical to its branch "
+          "run's best_model.pth after training")
+
+    # ---- the 224 checkpoint retargeted to 160
+    cfg160 = normalize_config({**configs["mm_MaxViT"],
+                               "model_kind": "maxvit_tiny_rw_160.sw_in1k"})
+    sd160 = load_model_checkpoint(cfg160, mm_result["model_dir"])
+    key = "maxvit_backbone.stages.0.blocks.0.attn_block.attn.rel_pos.relative_position_bias_table"
+    sc160 = AlertScorer(cfg160, sd160, batch_size=MAXVIT_BATCH["bf16"], device=DEVICE)
+    s160 = sc160(trips[:500], meta[:500])  # a full batch bucket and a partial one
+    rate160 = sc160.throughput(iters=5)
+    print(f"  retarget 224 -> 160: bias table {tuple(sd160[key].shape)}; bf16 "
+          f"{rate160:.1f} alerts/s at batch {MAXVIT_BATCH['bf16']} (224: "
+          f"{served['mm_MaxViT']['rates']['bf16']:.1f}) on {state['gpu']}", flush=True)
+    heads = maxvit_spec(MAXVIT_KIND)["dims"][0] // 32
+    check(tuple(sd160[key].shape) == (81, heads) and s160.shape == (len(trips[:500]),)
+          and bool(np.all(np.isfinite(s160))),
+          "the 224 best_model.pth loads into maxvit_tiny_rw_160 (tables resampled to "
+          "window 5) and gives finite scores")
+    state["maxvit"] = {name: {k: v for k, v in sv.items()
+                              if k in ("rates", "e2e", "memory", "split", "flops")}
+                       for name, sv in served.items()}
+    state["maxvit"]["train"] = {"step_ms": step_ms, "cli_s": mm_secs,
+                                "fusion_cli_s": fusion_secs, "rate160": rate160}
+
+
+# ------------------------------ phase 9 ------------------------------
+
+INCEPTION_KINDS = ("inceptionnext_pico", "inceptionnext_pico.r2")
+
+
+def _ln_mlp_share(sc, iters: int = 10) -> tuple:
+    """(forward ms, ms in the 12 fused_ln_mlp launches) of the scorer's bf16
+    forward on device-resident inputs, with CUDA events."""
+    import torch
+    from btsbot_tpu_torch.ops import ln_mlp as port_ln_mlp
+
+    g = torch.Generator(device="cpu").manual_seed(0)
+    images = torch.randn(BATCH, 63, 63, 3, generator=g).to(DEVICE)
+    meta = torch.randn(BATCH, len(META_COLS), generator=g).to(DEVICE)
+    launch, spans = port_ln_mlp._launch_ln_mlp, []
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = launch(*args)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    for _ in range(3):
+        sc._score(images, meta)
+    whole = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    port_ln_mlp._launch_ln_mlp = timed
+    try:
+        torch.cuda.synchronize()
+        whole[0].record()
+        for _ in range(iters):
+            sc._score(images, meta)
+        whole[1].record()
+        torch.cuda.synchronize()
+    finally:
+        port_ln_mlp._launch_ln_mlp = launch
+    check(len(spans) == 12 * iters, "12 fused_ln_mlp launches per timed forward")
+    return (whole[0].elapsed_time(whole[1]) / iters,
+            sum(a.elapsed_time(b) for a, b in spans) / iters)
+
+
+def phase_inceptionnext(state: dict) -> None:
+    """mm_ConvNeXt with the InceptionNeXt mixer (pico, and the .r2 student),
+    every block's LN → MLP half in the fused_ln_mlp kernel: both scorers,
+    the kernel's share of the bf16 forward, and cli.train for .r2."""
+    import numpy as np
+
+    configs = {kind: _train_config(model_kind=kind, epochs=1) for kind in INCEPTION_KINDS}
+    trips = _normalised_triplets(FAMILY_ALERTS, seed=41)
+    meta = np.random.default_rng(42).normal(size=(FAMILY_ALERTS, len(META_COLS))).astype(
+        np.float32)
+    launches, rates, shares = {}, {}, {}
+    for kind, config in configs.items():
+        served = _serve_family(kind, config, trips, meta)
+        launches[f"mm_ConvNeXt {kind} serving"] = served["launches"]["fused_ln_mlp"]
+        rates[kind] = served["rates"]
+        total, ln_mlp = _ln_mlp_share(served["scorer_bf16"])
+        shares[kind] = (total, ln_mlp)
+        print(f"  mm_ConvNeXt {kind} bf16 forward at batch {BATCH}: {total:.3f} ms = 12 "
+              f"fused_ln_mlp launches {ln_mlp:.3f} ms ({100 * ln_mlp / total:.1f} %) + "
+              f"everything else {total - ln_mlp:.3f} ms ({BATCH / total * 1e3:.0f} alerts/s) "
+              f"on {state['gpu']}", flush=True)
+    tmp, data_dir = _smoke_split(state)
+    r2 = INCEPTION_KINDS[1]
+    _, secs, counts = _train_family(configs[r2], r2, data_dir, os.path.join(tmp, "inception"),
+                                    "inceptionnext_r2")
+    state["inceptionnext"] = {"launches": launches, "train_launches": counts["fused_ln_mlp"],
+                              "rates": rates, "shares": shares, "cli_s": secs}
+
+
+# ------------------------------ phase 10 ------------------------------
 
 def _kernel_entry(name, source, replaces, launches, rows):
     """One forward's worth of launches at batch 3072 in bf16 (the serving
@@ -1307,18 +1791,28 @@ def phase_report(state: dict) -> None:
     fam = state["families"]
     paths = {"mm_ConvNeXt serving": state["launches_main"]["convnext_block_fused"],
              **fam["launches"]}
+    inc = state["inceptionnext"]
+    ln_mlp_paths = {"fast_mm_convnext_logits": state["launches_fast"]["fused_ln_mlp"],
+                    **inc["launches"]}
     kernels = [
         _kernel_entry("convnext_block_fused", "btsbot_tpu_torch/csrc/convnext_block.cu",
                       "btsbot_tpu/ops/pallas_convnext.py:147", sum(paths.values()),
                       res["convnext_block_fused"]),
         _kernel_entry("fused_ln_mlp", "btsbot_tpu_torch/csrc/ln_mlp.cu",
-                      "btsbot_tpu/ops/pallas_mlp.py:99",
-                      state["launches_fast"]["fused_ln_mlp"], res["fused_ln_mlp"]),
+                      "btsbot_tpu/ops/pallas_mlp.py:99", sum(ln_mlp_paths.values()),
+                      res["fused_ln_mlp"]),
     ]
     # each serving path's count, and the training paths' (the cli.train runs
-    # of phases 6 and 7)
+    # of phases 6, 7 and 9)
     kernels[0]["launches_by_path"] = paths
     kernels[0]["launches_train"] = state["launches_train"] + fam["train_launches"]
+    kernels[1]["launches_by_path"] = ln_mlp_paths
+    kernels[1]["launches_train"] = inc["train_launches"]
+    r2 = _kernel_entry("fused_ln_mlp", "", "", 0, res["fused_ln_mlp_r2"])
+    kernels[1]["hidden_2c"] = {k: r2[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                  "max_abs_err")}
+    kernels[1]["hidden_2c"]["per"] = ("one inceptionnext_pico.r2 forward at batch 3072, "
+                                      "bfloat16 (12 launches)")
     print("  the first version of both kernels (float FMAs on the CUDA cores), recorded "
           "on an NVIDIA H100 80GB HBM3 at 700 W and not measured here: "
           "convnext_block_fused 27.6 ms, fused_ln_mlp 24.4 ms for the same 12 launches",
@@ -1343,13 +1837,32 @@ def phase_report(state: dict) -> None:
           + ", ".join(f"{d} {1e3 / ms:.1f} steps/s" for d, ms in fam["step_ms"].items())
           + f"; cli.train 2 epochs {fam['mm_cnn_cli_s']:.1f} s; frozen_fusion 1 epoch "
           f"{fam['fusion_cli_s']:.1f} s, on {state['gpu']}", flush=True)
+    for kind, (total, ln_mlp) in inc["shares"].items():
+        r = inc["rates"][kind]
+        print(f"  mm_ConvNeXt {kind} at batch {BATCH}: bf16 {r['bf16']:.1f}, f32 "
+              f"{r['f32']:.1f} alerts/s; fused_ln_mlp {100 * ln_mlp / total:.1f} % of the "
+              f"bf16 forward; cli.train (.r2) 1 epoch {inc['cli_s']:.1f} s on {state['gpu']}",
+              flush=True)
+    mx = state["maxvit"]
+    for name in ("mm_MaxViT", "MaxViT"):
+        print(f"  {name}: " + ", ".join(
+            f"{k} batch {MAXVIT_BATCH[k]} {mx[name]['rates'][k]:.1f} alerts/s "
+            f"({mx[name]['memory'][k]:.2f} GiB peak)" for k in MAXVIT_BATCH)
+            + f" on {state['gpu']}", flush=True)
+    t = mx["train"]
+    print(f"  mm_MaxViT train step batch {MAXVIT_TRAIN_BATCH}: " + ", ".join(
+        f"{d} {1e3 / ms:.2f} steps/s" for d, ms in t["step_ms"].items())
+        + f"; cli.train 1 epoch {t['cli_s']:.1f} s, frozen_fusion over MaxViT "
+        f"{t['fusion_cli_s']:.1f} s; maxvit_tiny_rw_160 bf16 {t['rate160']:.1f} alerts/s "
+        f"on {state['gpu']}", flush=True)
     state["kernels_line"] = json.dumps({"kernels": kernels})
 
 
 PHASES = [("setup", phase_setup), ("kernels", phase_kernels),
           ("main path", phase_main_path), ("fast path", phase_fast_path),
           ("forward split", phase_forward_split), ("train", phase_train),
-          ("families", phase_families), ("report", phase_report)]
+          ("families", phase_families), ("maxvit", phase_maxvit),
+          ("inceptionnext", phase_inceptionnext), ("report", phase_report)]
 
 
 def main() -> int:

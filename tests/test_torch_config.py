@@ -59,6 +59,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import btsbot_tpu_torch.native, btsbot_tpu_torch.data.synthetic\n"
         "import btsbot_tpu_torch.cli.train, btsbot_tpu_torch.engine.train\n"
         "import btsbot_tpu_torch.metrics.diagnostics, btsbot_tpu_torch.ops.augment\n"
+        "import btsbot_tpu_torch.models.maxvit, btsbot_tpu_torch.interop.maxvit_convert\n"
+        "import btsbot_tpu_torch.ops.resize, btsbot_tpu_torch.interop.hf\n"
         "btsbot_tpu_torch.AlertScorer, btsbot_tpu_torch.build_model\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"

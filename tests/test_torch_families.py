@@ -235,9 +235,3 @@ def test_example_inputs_match_jax(family):
     for w, g in zip(want, got):
         assert (w is None and g is None) or tuple(w.shape) == tuple(g.shape)
 
-
-def test_fusion_maxvit_branch_raises_naming_roadmap():
-    config = {**FUSION_CNN, "image_model_config": {
-        "model_name": "MaxViT", "model_kind": "maxvit_tiny_rw_224", **_HEAD}}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(config, device="cpu")

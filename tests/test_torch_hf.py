@@ -20,10 +20,12 @@ from btsbot_tpu import normalize_config
 from btsbot_tpu.engine import serve as jax_serve
 from btsbot_tpu.interop import hf as jax_hf
 from btsbot_tpu.interop.export import save_torch_checkpoint
+from btsbot_tpu.models import maxvit as jax_maxvit
 from btsbot_tpu_torch.data.synthetic import synthetic_packets
 from btsbot_tpu_torch.engine import serve
 from btsbot_tpu_torch.interop import hf
 from btsbot_tpu_torch.interop.weights import state_dict_from_jax
+from btsbot_tpu_torch.models import maxvit as port_maxvit
 from test_torch_families import (
     CONVNEXT_ATTO,
     META_COLS,
@@ -35,6 +37,9 @@ from test_torch_families import (
     inputs,
 )
 
+MM_META = {"metadata_cols": META_COLS, "meta_fc1_neurons": 16, "meta_fc2_neurons": 12,
+           "meta_dropout": 0.2, "comb_fc1_neurons": 8, "comb_fc2_neurons": 6,
+           "comb_dropout": 0.2, "train_data_version": "v12"}
 SNAPSHOTS = {"mm_cnn": MM_CNN, "um_cnn": UM_CNN, "um_nn": UM_NN,
              "ConvNeXt": CONVNEXT_ATTO}
 
@@ -93,9 +98,26 @@ def test_load_hf_model_uses_the_local_snapshot_and_never_downloads(tmp_path, mon
     got = model.state_dict()
     assert sorted(got) == sorted(want)
     assert all(np.array_equal(got[k].numpy(), want[k]) for k in want)
-    for arch in ("maxvit", "inceptionnext"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            hf.load_HF_model(arch, True, "imagenet", models_root=str(tmp_path), device="cpu")
+    # the other two architectures of the grid, MaxViT at the JAX package's
+    # test spec (tests/test_maxvit_parity.py:24-47)
+    for module in (jax_maxvit, port_maxvit):
+        monkeypatch.setitem(module.MAXVIT_CONFIGS, "maxvit_tiny",
+                            {"depths": (1, 1), "dims": (32, 64), "stem_width": 32})
+    for arch, config in (("maxvit", {**MM_META, "model_name": "mm_MaxViT",
+                                     "model_kind": "maxvit_tiny_rw_64.test"}),
+                         ("inceptionnext", {**MM_META, "model_name": "mm_ConvNeXt",
+                                            "model_kind": "inceptionnext_atto.r2"})):
+        config = normalize_config(config)
+        variables = flax_variables(config)
+        _write_snapshot(hf.get_local_model_dir(arch, True, "imagenet", str(tmp_path)),
+                        config, variables)
+        model, got_config = hf.load_HF_model(arch, True, "imagenet",
+                                             models_root=str(tmp_path), device="cpu")
+        assert got_config["model_kind"] == config["model_kind"]
+        want = state_dict_from_jax(config, variables)
+        got = model.state_dict()
+        assert sorted(got) == sorted(want)
+        assert all(np.array_equal(got[k].numpy(), want[k]) for k in want)
 
 
 def test_load_torch_checkpoint_drops_a_dataparallel_prefix(tmp_path):

@@ -214,17 +214,6 @@ def test_bf16_model_scores_close_to_f32():
     assert d < 0.01
 
 
-@pytest.mark.parametrize("name", ["MaxViT", "mm_MaxViT"])
-def test_unported_families_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model({**atto_config(), "model_name": name}, device="cpu")
-
-
-def test_inceptionnext_kind_raises():
-    with pytest.raises(NotImplementedError, match="InceptionMixer"):
-        build_model(atto_config(kind="inceptionnext_atto"), device="cpu")
-
-
 def test_build_model_is_seeded_and_inits_like_torch():
     a = build_model(atto_config(), device="cpu", seed=3).state_dict()
     b = build_model(atto_config(), device="cpu", seed=3).state_dict()
