@@ -4,9 +4,10 @@ The JAX package ``btsbot_tpu`` beside it is the reference; this package
 imports nothing of it (nor jax or flax) and holds its own copies of what it
 needs.  The serving path runs here end to end: packet decode (``native``),
 ingest (``ops.preprocess``), the model forward with every ConvNeXt block in
-a hand-written CUDA kernel (``ops.convnext_block``, ``ops.ln_mlp``), and the
-scorers (``engine.serve``).  So does training: ``engine.train.run_training``
-and ``python -m btsbot_tpu_torch.cli.train``, with the block kernel in
+a hand-written CUDA kernel (``ops.convnext_block``, ``ops.ln_mlp``), the
+scorers and the broker daemon (``engine.serve``, ``cli.serve``).  So does
+training: ``engine.train.run_training`` and ``python -m
+btsbot_tpu_torch.cli.train``, with the block kernel in
 every training and evaluation forward.  Every family is ported
 (mm_ConvNeXt and ConvNeXt with ``convnext_*`` or ``inceptionnext_*`` kinds,
 MaxViT, mm_MaxViT, mm_cnn, um_cnn, um_nn, frozen_fusion), and HF
@@ -31,7 +32,8 @@ from .core.config import (
 
 def __getattr__(name):
     # Heavier surfaces load lazily so `import btsbot_tpu_torch` stays light.
-    if name in ("AlertScorer", "AlertStreamScorer", "verify_serving_parity"):
+    if name in ("AlertScorer", "AlertStreamScorer", "AlertStreamConsumer",
+                "verify_serving_parity"):
         from .engine import serve
         return getattr(serve, name)
     if name == "build_model":
@@ -59,6 +61,7 @@ __all__ = [
     "MULTIMODAL_MODELS",
     "AlertScorer",
     "AlertStreamScorer",
+    "AlertStreamConsumer",
     "verify_serving_parity",
     "build_model",
     "state_dict_from_jax",

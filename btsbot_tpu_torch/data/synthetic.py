@@ -1,8 +1,10 @@
-"""Synthetic alert packets (port of btsbot_tpu.data.synthetic.synthetic_packets).
+"""Synthetic alert packets (port of btsbot_tpu/data/synthetic.py).
 
 Packets have the shape ``AlertStreamScorer`` consumes:
 ``cutout{Science,Template,Difference}.stampData`` gzip+FITS blobs plus a
-``candidate`` dict carrying the configured metadata columns.
+``candidate`` dict carrying the configured metadata columns;
+``synthetic_avro_ocf`` encodes them as a ZTF Avro OCF blob, the brokers'
+wire format.
 """
 
 from __future__ import annotations
@@ -38,3 +40,22 @@ def synthetic_packets(n: int, meta_cols, seed: int = 0,
             **{k: {"stampData": shared if shared is not None else blob()}
                for k in CUTOUT_KEYS},
         }
+
+
+def synthetic_avro_ocf(n: int, meta_cols, seed: int = 0,
+                       codec: str = "deflate",
+                       block_records: int | None = 64) -> bytes:
+    """Encode n synthetic alerts as a ZTF Avro OCF byte blob (``data/avro.py``
+    codec; schema per ``ztf_alert_schema``)."""
+    from .avro import write_ocf, ztf_alert_schema
+
+    records = []
+    for i, p in enumerate(synthetic_packets(n, meta_cols, seed=seed)):
+        rec = {"objectId": f"ZTFsynth{i}", "candid": p["candid"],
+               "candidate": p["candidate"]}
+        for k in CUTOUT_KEYS:
+            rec[k] = {"fileName": f"{i}.fits.gz",
+                      "stampData": p[k]["stampData"]}
+        records.append(rec)
+    return write_ocf(ztf_alert_schema(meta_cols), records, codec=codec,
+                     block_records=block_records)

@@ -88,3 +88,33 @@ def load_torch_checkpoint(path: str) -> dict:
     if sd and all(k.startswith("module.") for k in sd):
         sd = {k[len("module."):]: v for k, v in sd.items()}
     return sd
+
+
+def load_run_dir(model_dir: str) -> tuple:
+    """(config, state dict) of a model directory, in the forms the JAX
+    package's ``load_teacher`` accepts that the port can read: an HF-style
+    snapshot (train_config.json + pytorch_model.bin), or a run directory of
+    the port or of the reference trainer (train_config.json or report.json
+    + best_model.pth).  The state dict is adapted to the config
+    (``load_model_checkpoint``)."""
+    import json
+
+    from ..core.config import normalize_config
+
+    cfg_path = os.path.join(model_dir, "train_config.json")
+    report_path = os.path.join(model_dir, "report.json")
+    if os.path.isfile(cfg_path):
+        with open(cfg_path) as f:
+            config = normalize_config(json.load(f))
+    elif os.path.isfile(report_path):
+        from ..metrics.report import load_report_config
+        config = normalize_config(load_report_config(model_dir))
+    else:
+        raise FileNotFoundError(
+            f"{model_dir}: need train_config.json or report.json plus either "
+            f"pytorch_model.bin (HF snapshot) or {BEST_MODEL} (a run of the "
+            "port or of the reference trainer)")
+    bin_path = os.path.join(model_dir, "pytorch_model.bin")
+    if os.path.isfile(bin_path):
+        return config, adapt_state_dict(config, load_torch_checkpoint(bin_path))
+    return config, load_model_checkpoint(config, model_dir)

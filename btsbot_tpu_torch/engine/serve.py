@@ -5,7 +5,11 @@
 * ``AlertStreamScorer`` — raw alert packets → scores: the native stamp
   decode on the host, then ingest, the forward and the sigmoid on the card,
   with one packed (2, B) result per batch (scores, corrupt flag) and a
-  pipelined ``score_stream``;
+  pipelined ``score_stream``; its pixels may cross to the card in
+  bfloat16 (``transfer_dtype``);
+* ``AlertStreamConsumer`` — the broker daemon over it: adaptive batching,
+  backpressure, a decode thread, the idle drain, latency percentiles and a
+  score histogram (``cli/serve.py`` runs it as a process);
 * ``verify_serving_parity`` — bf16 serving scores against the float32 ones.
 
 Every ported family is served: an image-only model takes no metadata, a
@@ -79,14 +83,20 @@ def load_model(config, weights: Mapping, dtype, device):
     return model
 
 
-def _padded_on(rows: np.ndarray, bs: int, device) -> torch.Tensor:
-    """rows as float32 on ``device``, zero-padded to bs rows."""
+def _padded_on(rows: np.ndarray, bs: int, device,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """rows zero-padded to bs rows, on ``device`` in ``dtype``.  A narrower
+    type (bfloat16) is cast on the host, round to nearest even, so only its
+    bytes cross to the card."""
     if len(rows) == bs:
         out = np.ascontiguousarray(rows, dtype=np.float32)
     else:
         out = np.zeros((bs,) + rows.shape[1:], np.float32)
         out[:len(rows)] = rows
-    return torch.from_numpy(out).to(device)
+    host = torch.from_numpy(out)
+    if dtype != torch.float32:
+        host = host.to(dtype)
+    return host.to(device)
 
 
 class AlertScorer:
@@ -182,10 +192,15 @@ class AlertStreamScorer:
     """
 
     def __init__(self, config, weights: Mapping, batch_size: int = 3072,
-                 dtype=torch.bfloat16, num_threads: int = 0, bucket_sizes=None,
-                 temperature: float = 1.0, device=None):
-        """num_threads: host decode threads (0: one per core).  bucket_sizes,
-        temperature: as for AlertScorer."""
+                 dtype=torch.bfloat16, num_threads: int = 0, transfer_dtype=None,
+                 bucket_sizes=None, temperature: float = 1.0, device=None):
+        """num_threads: host decode threads (0: one per core).
+        transfer_dtype: a narrower type (torch.bfloat16) for the pixels'
+        host → card copy, which halves its bytes at bf16's rounding of the
+        raw pixels (the scores already run in bf16); the ingest still runs in
+        float32 on the card, and the metadata always crosses as float32.
+        None (the default) ships float32 pixels.  bucket_sizes, temperature:
+        as for AlertScorer."""
         self.config = normalize_config(config)
         self.device = resolve_device(device)
         self.batch_size = batch_size
@@ -193,6 +208,7 @@ class AlertStreamScorer:
         self.temperature = float(temperature)
         self.dtype = dtype
         self.num_threads = num_threads
+        self.transfer_dtype = transfer_dtype
         self.model = load_model(self.config, weights, dtype, self.device)
 
     @torch.inference_mode()
@@ -245,8 +261,13 @@ class AlertStreamScorer:
         ingest + forward.  Returns the packed (2, bucket) tensor, still being
         computed."""
         bs = _pick_bucket(self.bucket_sizes, n)
-        return self._fwd(*(None if rows is None else _padded_on(rows[:n], bs, self.device)
-                           for rows in (triplets, metadata)))
+        img = meta = None
+        if triplets is not None:
+            img = _padded_on(triplets[:n], bs, self.device,
+                             self.transfer_dtype or torch.float32)
+        if metadata is not None:
+            meta = _padded_on(metadata[:n], bs, self.device)
+        return self._fwd(img, meta)
 
     @staticmethod
     def _finish(packed_dev: torch.Tensor, decode_bad, n: int):
@@ -261,7 +282,10 @@ class AlertStreamScorer:
         """Run every bucket once, so the first partial batch of a stream
         pays no first-call cost (kernel build, library handles)."""
         for bs in self.bucket_sizes:
-            self._fwd(*example_inputs(self.config, bs, device=self.device))
+            img, meta = example_inputs(self.config, bs, device=self.device)
+            if img is not None and self.transfer_dtype is not None:
+                img = img.to(self.transfer_dtype)
+            self._fwd(img, meta)
         _sync(self.device)
 
     def __call__(self, packets: list[dict]) -> tuple[np.ndarray, np.ndarray]:
@@ -337,6 +361,323 @@ class AlertStreamScorer:
                 raise decode_error[0]
         finally:
             abandoned.set()
+
+
+class AlertStreamConsumer:
+    """Long-running broker consumer daemon over an ``AlertStreamScorer``
+    (port of btsbot_tpu.engine.serve.AlertStreamConsumer).
+
+    Pulls alert packets from a source, batches them adaptively (a batch is
+    flushed at ``max_batch`` packets or ``max_wait_s`` after its first
+    packet), scores them through the scorer's pipeline stages and hands the
+    results to a sink.
+
+    * source: an iterable of packets, or a ``queue.Queue`` fed by the broker
+      (``None`` in the queue ends the stream after the drain).
+    * sink: ``sink(packets, scores, drop)`` per scored batch.
+    * backpressure: at most ``max_in_flight`` batches on the card plus one
+      decoded and one collected batch are held; the bounded feeder queue (or
+      a bounded queue source) blocks the broker when scoring falls behind.
+    * stats: alerts in / scored / dropped, batches, wall time, alerts/s, the
+      p50 / p99 of each batch's latency from its first packet's arrival to
+      its results, and a 20-bin histogram of the kept scores (the cheap
+      drift signal); every ``stats_interval_s`` a JSON line to
+      ``stats_log``.
+    """
+
+    def __init__(self, scorer: AlertStreamScorer, source, sink,
+                 max_batch: int | None = None, max_wait_s: float = 0.1,
+                 max_in_flight: int = 2, stats_interval_s: float = 0.0,
+                 stats_log=None):
+        """stats_interval_s > 0 emits a JSON stats line to ``stats_log``
+        (default: print) at most every interval while consuming."""
+        import queue as _queue
+        import threading
+        from collections import deque
+
+        self.scorer = scorer
+        self.sink = sink
+        self.max_batch = min(max_batch or scorer.batch_size, scorer.batch_size)
+        self.max_wait_s = max_wait_s
+        self.max_in_flight = max_in_flight
+        self.stats_interval_s = stats_interval_s
+        self.stats_log = stats_log or print
+        self._last_stats_emit = 0.0
+        self.stats = {"alerts_in": 0, "alerts_scored": 0, "dropped": 0,
+                      "batches": 0, "wall_s": 0.0, "alerts_per_s": 0.0}
+        # a batch is stamped when its first packet is collected, so its
+        # latency is its worst alert's: the batching wait, decode, copy,
+        # forward and readback
+        self._latencies: deque = deque(maxlen=8192)
+        # edges 0.0, 0.05, ..., 1.0
+        self._score_hist = np.zeros(20, np.int64)
+        self._source_error: BaseException | None = None
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        self._done = False
+
+        if isinstance(source, _queue.Queue):
+            self._queue = source
+        else:
+            # an iterable goes through a bounded feeder queue (backpressure);
+            # puts poll the stop flag, so stop() never strands the feeder
+            self._queue = _queue.Queue(maxsize=4 * self.max_batch)
+
+            def put_or_stop(item) -> bool:
+                while not self._stop.is_set():
+                    try:
+                        self._queue.put(item, timeout=0.2)
+                        return True
+                    except _queue.Full:
+                        continue
+                return False
+
+            def feed(it):
+                # a source that raises still delivers the sentinel, or run()
+                # would poll an empty queue for ever; run() re-raises it
+                try:
+                    for p in it:
+                        if not put_or_stop(p):
+                            return
+                except BaseException as e:  # noqa: BLE001 — re-raised in run()
+                    self._source_error = e
+                finally:
+                    put_or_stop(None)
+
+            self._feeder = threading.Thread(target=feed, args=(source,),
+                                            daemon=True, name="alert-consumer-feed")
+            self._feeder.start()
+
+    def _collect_batch(self, idle_poll_s: float = 0.05):
+        """One adaptive batch: (packets, first arrival on the monotonic
+        clock) with up to max_batch packets (a partial batch flushes
+        max_wait_s after its first packet), ``([], None)`` when the source is
+        idle (so the caller drains the results in flight), None at the end."""
+        import queue as _queue
+
+        if self._done:
+            return None
+        batch: list = []
+        first_ts = None
+        deadline = None
+        while len(batch) < self.max_batch:
+            if self._stop.is_set():
+                return (batch, first_ts) if batch else None
+            timeout = idle_poll_s if deadline is None \
+                else max(0.0, deadline - time.monotonic())
+            try:
+                item = self._queue.get(timeout=timeout)
+            except _queue.Empty:
+                if batch:
+                    break  # max_wait_s after the first packet: flush
+                return [], None  # idle: let the caller drain the pipeline
+            if item is None:
+                self._done = True
+                break
+            batch.append(item)
+            if deadline is None:
+                first_ts = time.monotonic()
+                deadline = first_ts + self.max_wait_s
+        if self._done and not batch:
+            return None
+        return batch, first_ts
+
+    def _latency_stats(self) -> None:
+        if self._latencies:
+            p50, p99 = np.percentile(np.asarray(self._latencies), [50, 99])
+            self.stats["latency_p50_ms"] = round(float(p50) * 1000, 2)
+            self.stats["latency_p99_ms"] = round(float(p99) * 1000, 2)
+
+    def run(self) -> dict:
+        """Consume until the source ends (or stop()); returns the stats.
+
+        A background thread decodes collected batches (the native decoder
+        releases the GIL); this thread pads, copies and launches them and
+        reads results back, with up to ``max_in_flight`` batches on the card.
+        When the source goes idle, the batches in flight are finished at
+        once instead of waiting for more input.
+
+        Not built on ``score_stream``: that generator holds results until
+        its in-flight window fills, which suits a fixed run, while a daemon
+        must drain the moment the source goes idle, or trickle traffic pays
+        max_in_flight · max_wait_s more latency.  A fix to one pipeline's
+        shutdown or backpressure should be checked against the other.
+        """
+        import json
+        import queue as _queue
+        import threading
+        from collections import deque
+
+        t0 = time.perf_counter()
+        self._done = False
+        inflight: deque = deque()
+        raw_q: _queue.Queue = _queue.Queue(maxsize=1)
+        ready_q: _queue.Queue = _queue.Queue(maxsize=max(1, self.max_in_flight))
+        decode_error: list[BaseException] = []
+
+        def decode_worker():
+            try:
+                while True:
+                    item = raw_q.get()
+                    if item is None:
+                        break
+                    batch, ts = item
+                    ready_q.put((batch, ts, self.scorer._prepare(batch)))
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                decode_error.append(e)
+            finally:
+                ready_q.put(None)
+
+        worker = threading.Thread(target=decode_worker, daemon=True,
+                                  name="alert-consumer-decode")
+        worker.start()
+
+        def finish_oldest():
+            packets, ts, packed, decode_bad = inflight.popleft()
+            scores, drop = self.scorer._finish(packed, decode_bad, len(packets))
+            self.stats["alerts_scored"] += len(scores)
+            self.stats["dropped"] += int(drop.sum())
+            self.stats["batches"] += 1
+            if ts is not None:
+                self._latencies.append(time.monotonic() - ts)
+            kept = scores[~drop]
+            if kept.size:
+                self._score_hist += np.bincount(
+                    np.clip((kept * 20).astype(np.int64), 0, 19), minlength=20)
+                self.stats["score_hist"] = self._score_hist.tolist()
+            self.sink(packets, scores, drop)
+            if self.stats_interval_s > 0:
+                now = time.monotonic()
+                if now - self._last_stats_emit >= self.stats_interval_s:
+                    self._last_stats_emit = now
+                    wall = time.perf_counter() - t0
+                    self._latency_stats()
+                    self.stats_log(json.dumps({
+                        **self.stats, "wall_s": round(wall, 3),
+                        "alerts_per_s": round(
+                            self.stats["alerts_scored"] / max(wall, 1e-9), 1)}))
+
+        def drain_ready(block: bool) -> bool:
+            """Launch decoded batches; False once the decoder has signalled
+            the end of the stream."""
+            while True:
+                try:
+                    item = ready_q.get(block=block, timeout=10.0 if block else None)
+                except _queue.Empty:
+                    return True
+                if item is None:
+                    return False
+                batch, ts, prep = item
+                packed = self.scorer._dispatch(prep[0], prep[1], len(batch))
+                inflight.append((batch, ts, packed, prep[2]))
+                if len(inflight) >= self.max_in_flight:
+                    finish_oldest()
+                block = False  # a blocking drain waits for the first item only
+
+        decoding = True
+        try:
+            while True:
+                collected = self._collect_batch()
+                if collected is None:
+                    break
+                batch, ts = collected
+                if batch:
+                    self.stats["alerts_in"] += len(batch)
+                    while decoding:
+                        # never block on the decoder with results undrained:
+                        # alternating put and drain avoids a deadlock of full
+                        # queues
+                        decoding = drain_ready(block=False)
+                        try:
+                            raw_q.put((batch, ts), timeout=0.05)
+                            break
+                        except _queue.Full:
+                            continue
+                else:
+                    decoding = drain_ready(block=False) and decoding
+                    if inflight:
+                        finish_oldest()
+                if not decoding:
+                    break  # the decoder died mid-stream: its error below
+
+            # the decoder's sentinel; it may still be busy with the last batch
+            # (raw_q full), so keep draining results while waiting
+            while decoding:
+                try:
+                    raw_q.put(None, timeout=0.05)
+                    break
+                except _queue.Full:
+                    decoding = drain_ready(block=False) and decoding
+            while decoding:
+                decoding = drain_ready(block=True)
+            while inflight:
+                finish_oldest()
+            worker.join()
+        finally:
+            # an exception above (the sink or a launch raising) must not
+            # strand the decoder on raw_q.get() or ready_q.put()
+            while worker.is_alive():
+                try:
+                    raw_q.put_nowait(None)
+                except _queue.Full:
+                    pass
+                try:
+                    ready_q.get(timeout=0.05)
+                except _queue.Empty:
+                    pass
+            worker.join()
+
+        self.stats["wall_s"] = time.perf_counter() - t0
+        if self.stats["wall_s"] > 0:
+            self.stats["alerts_per_s"] = \
+                self.stats["alerts_scored"] / self.stats["wall_s"]
+        self._latency_stats()
+        if decode_error:
+            raise decode_error[0]
+        if self._source_error is not None:
+            raise RuntimeError(
+                "alert source failed mid-stream (scored "
+                f"{self.stats['alerts_scored']} before the failure)"
+            ) from self._source_error
+        return self.stats
+
+    def start(self) -> None:
+        """Run the consumer loop in a background daemon thread.  An exception
+        of run() (a source failing mid-stream) is re-raised by stop()."""
+        import threading
+
+        self._run_error: BaseException | None = None
+
+        def target():
+            try:
+                self.run()
+            except BaseException as e:  # noqa: BLE001 — re-raised in stop()
+                self._run_error = e
+
+        self._thread = threading.Thread(target=target, daemon=True,
+                                        name="alert-consumer")
+        self._thread.start()
+
+    def stop(self, timeout: float = 10.0) -> dict:
+        """Signal shutdown, drain the work in flight, join, return the stats.
+        Re-raises the exception the background loop died with; raises
+        TimeoutError if it has not drained within ``timeout`` seconds."""
+        import json
+
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout)
+            if self._thread.is_alive():
+                raise TimeoutError(
+                    f"consumer did not drain within {timeout}s (stats so far: "
+                    f"{json.dumps(self.stats)}); call stop() again with a "
+                    "longer timeout")
+        err = getattr(self, "_run_error", None)
+        if err is not None:
+            raise RuntimeError(
+                f"background consumer failed (stats: {json.dumps(self.stats)})"
+            ) from err
+        return self.stats
 
 
 def verify_serving_parity(config, weights, triplets=None, metadata=None,

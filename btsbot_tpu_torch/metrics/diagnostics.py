@@ -29,8 +29,8 @@ def diagnostic_summary(
     aligned with raw_preds / labels."""
     if make_figure:
         raise NotImplementedError(
-            "the diagnostic figure is not ported (ROADMAP Queue A item 11: "
-            "the framework-neutral surface); pass make_figure=False")
+            "the diagnostic figure is not ported (ROADMAP Queue A item 3); "
+            "pass make_figure=False")
     raw_preds = np.asarray(raw_preds).reshape(-1)
     labels = np.asarray(labels).astype(int).reshape(-1)
     summary = alert_metrics(labels, raw_preds)

@@ -37,3 +37,8 @@ def make_report(config, report_path: str, run_data: dict, val_summary: dict
         json.dump(report, f, indent=4, default=_listify)
     return report
 
+
+def load_report_config(model_dir: str) -> dict:
+    """train_config from a model dir's report.json."""
+    with open(os.path.join(model_dir, "report.json"), "r") as f:
+        return json.load(f)["train_config"]

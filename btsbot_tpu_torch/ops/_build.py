@@ -27,7 +27,9 @@ import torch
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG_DIR / "csrc"
-BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
+DEFAULT_BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
+# where build() compiles to and loads from; utils/compile_cache.py moves it
+BUILD_DIR = DEFAULT_BUILD_DIR
 LIB_NAME = "libbtsbot_kernels.so"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -43,6 +45,13 @@ _SIGNATURES = {
     # x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, out, B, H, W, C,
     # hidden, is_bf16, stream
     "btsbot_convnext_block": [_P] * 11 + [ctypes.c_int] * 6 + [_P],
+    # the same two functions at any width (csrc/any_width.cu)
+    "btsbot_ln_mlp_any": [_P] * 10 + [ctypes.c_longlong, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_int, _P],
+    "btsbot_convnext_block_any": [_P] * 11 + [ctypes.c_int] * 6 + [_P],
+    # M, C, hidden -> rows of the flattened index a block of the any-width
+    # kernels takes (0: widths they do not take)
+    "btsbot_any_width_rows": [ctypes.c_longlong, ctypes.c_int, ctypes.c_int],
     # C -> rows of the flattened index a block of the bf16 kernels takes
     "btsbot_tile_rows": [ctypes.c_int],
     # C, H, W -> 1 if the bf16 block kernel keeps the input tile of such a
@@ -167,7 +176,36 @@ def check(err: int, name: str) -> None:
 
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_WIDTHS = (64, 128, 256, 512)
+# Widths the tuned kernels take (csrc/convnext_block.cu, csrc/ln_mlp.cu: bf16
+# in units of 64 channels and 64 hidden units, float32 in tiles specialised
+# per C); every other width runs csrc/any_width.cu.
+TUNED_WIDTHS = (64, 128, 256, 512)
+# C entry point of each function and kernel variant
+ENTRY_POINTS = {
+    "convnext_block": {"tuned": "btsbot_convnext_block",
+                       "any_width": "btsbot_convnext_block_any"},
+    "ln_mlp": {"tuned": "btsbot_ln_mlp", "any_width": "btsbot_ln_mlp_any"},
+}
+
+
+def kernel_variant(c: int, hidden: int) -> str:
+    """The kernel that takes a block of width ``c`` with ``hidden`` MLP units,
+    chosen by width: "tuned" for C in TUNED_WIDTHS at a hidden width that is a
+    multiple of 64 (every ``k * C`` there), "any_width" for every other C and
+    hidden that are multiples of 8 (every ConvNeXt size's widths and their
+    ``.r<k>`` hidden widths).  Raises on widths neither takes."""
+    if c <= 0 or hidden <= 0 or c % 8 or hidden % 8:
+        raise ValueError(f"the kernels take C and hidden widths that are positive "
+                         f"multiples of 8, got C={c}, hidden={hidden}")
+    return "tuned" if c in TUNED_WIDTHS and hidden % 64 == 0 else "any_width"
+
+
+def count_launch(wrapper, c: int, hidden: int) -> None:
+    """One launch of ``wrapper``'s kernel at widths (c, hidden): its total
+    ``launches`` and its ``launches_by_width[(c, hidden)]``."""
+    wrapper.launches += 1
+    key = (c, hidden)
+    wrapper.launches_by_width[key] = wrapper.launches_by_width.get(key, 0) + 1
 
 
 def kernel_operands(x, params, name: str) -> list:
@@ -180,9 +218,6 @@ def kernel_operands(x, params, name: str) -> list:
     if x.dtype not in KERNEL_DTYPES:
         raise TypeError(f"{name}: the kernel takes float32 or bfloat16, "
                         f"got {x.dtype}")
-    if x.shape[-1] not in KERNEL_WIDTHS:
-        raise ValueError(f"{name}: the kernel takes C in {KERNEL_WIDTHS}, "
-                         f"got {x.shape[-1]}")
     ops = [x.contiguous()]
     for i, p in enumerate(params):
         if p.device != x.device:

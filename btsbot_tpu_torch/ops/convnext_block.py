@@ -6,10 +6,12 @@ Port of btsbot_tpu/ops/pallas_convnext.py:
   ``_block_reference``): depthwise 7×7 SAME conv with float32 accumulation,
   cast to the storage type, + bias; then the LN → MLP → γ → residual chain
   of ``ops.ln_mlp.ln_mlp_reference`` with the block input as shortcut;
-* ``convnext_block_fused`` — the wrapper of the CUDA kernel
-  ``csrc/convnext_block.cu``.  On a CUDA tensor it launches the kernel
-  (counted in ``convnext_block_fused.launches``) or raises; only a CPU
-  tensor takes the plain version.  Its backward recomputes the plain
+* ``convnext_block_fused`` — the wrapper of the CUDA kernels: the tuned
+  ``csrc/convnext_block.cu`` at C = 64 / 128 / 256 / 512, and
+  ``csrc/any_width.cu`` at every other width (``_build.kernel_variant``).
+  On a CUDA tensor it launches one of them (counted in
+  ``convnext_block_fused.launches`` and ``.launches_by_width``) or raises;
+  only a CPU tensor takes the plain version.  Its backward recomputes the plain
   version (pallas_convnext.py:187-190);
 * ``block_params_apply`` — the block from reference-named parameters.
 
@@ -62,15 +64,17 @@ def _launch_block(x, dw_w, dw_b, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, gamma):
     if fc1_w.shape != (hidden, c) or fc2_w.shape != (c, hidden):
         raise ValueError(f"convnext_block_fused: fc1 {tuple(fc1_w.shape)} / fc2 "
                          f"{tuple(fc2_w.shape)} do not fit C={c}")
+    variant = _build.kernel_variant(c, hidden)
     ops = _build.kernel_operands(
         x, (dw_w, dw_b, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, gamma),
         "convnext_block_fused")
     out = torch.empty_like(ops[0])
-    err = _build.library().btsbot_convnext_block(
-        *[t.data_ptr() for t in ops], out.data_ptr(), b, hgt, wid, c, hidden,
-        _build.KERNEL_DTYPES[x.dtype], _build.current_stream(x))
-    _build.check(err, "convnext_block_fused")
-    convnext_block_fused.launches += 1
+    launch = getattr(_build.library(),
+                     _build.ENTRY_POINTS["convnext_block"][variant])
+    err = launch(*[t.data_ptr() for t in ops], out.data_ptr(), b, hgt, wid, c,
+                 hidden, _build.KERNEL_DTYPES[x.dtype], _build.current_stream(x))
+    _build.check(err, f"convnext_block_fused ({variant}, C={c})")
+    _build.count_launch(convnext_block_fused, c, hidden)
     return out
 
 
@@ -97,6 +101,7 @@ def convnext_block_fused(x, dw_w, dw_b, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b,
 
 
 convnext_block_fused.launches = 0
+convnext_block_fused.launches_by_width = {}  # (C, hidden) -> launches
 
 BLOCK_PARAM_NAMES = ("conv_dw.weight", "conv_dw.bias", "norm.weight", "norm.bias",
                      "mlp.fc1.weight", "mlp.fc1.bias", "mlp.fc2.weight",

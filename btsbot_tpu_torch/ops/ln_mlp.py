@@ -6,9 +6,11 @@ Port of btsbot_tpu/ops/pallas_mlp.py.  Three things live here:
   with the JAX kernel's rounding points: LN statistics in float32, a cast to
   the storage type after the normalisation and after each product, biases,
   γ and the residual added in the storage type;
-* ``fused_ln_mlp`` — the wrapper of the CUDA kernel ``csrc/ln_mlp.cu``.  On a
-  CUDA tensor it launches the kernel (and counts the launch in
-  ``fused_ln_mlp.launches``) or raises; only a CPU tensor takes the plain
+* ``fused_ln_mlp`` — the wrapper of the CUDA kernels ``csrc/ln_mlp.cu`` (C =
+  64 / 128 / 256 / 512) and ``csrc/any_width.cu`` (every other width,
+  ``_build.kernel_variant``).  On a CUDA tensor it launches one of them
+  (and counts the launch in ``fused_ln_mlp.launches`` and
+  ``.launches_by_width``) or raises; only a CPU tensor takes the plain
   version.  Its backward recomputes the plain version, as the JAX custom VJP
   does (pallas_mlp.py:128-131).  Every ``inceptionnext_*`` block calls it
   (models.convnext.InceptionNeXtBlock), at hidden width ratio·C;
@@ -61,15 +63,16 @@ def _launch_ln_mlp(h, shortcut, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, gamma):
     if fc1_w.shape != (hidden, c) or fc2_w.shape != (c, hidden):
         raise ValueError(f"fused_ln_mlp: fc1 {tuple(fc1_w.shape)} / fc2 "
                          f"{tuple(fc2_w.shape)} do not fit C={c}")
+    variant = _build.kernel_variant(c, hidden)
     ops = _build.kernel_operands(
         h, (shortcut.contiguous(), ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, gamma),
         "fused_ln_mlp")
     out = torch.empty_like(ops[0])
-    err = _build.library().btsbot_ln_mlp(
-        *[t.data_ptr() for t in ops], out.data_ptr(), m, c, hidden,
-        _build.KERNEL_DTYPES[h.dtype], _build.current_stream(h))
-    _build.check(err, "fused_ln_mlp")
-    fused_ln_mlp.launches += 1
+    launch = getattr(_build.library(), _build.ENTRY_POINTS["ln_mlp"][variant])
+    err = launch(*[t.data_ptr() for t in ops], out.data_ptr(), m, c, hidden,
+                 _build.KERNEL_DTYPES[h.dtype], _build.current_stream(h))
+    _build.check(err, f"fused_ln_mlp ({variant}, C={c}, hidden={hidden})")
+    _build.count_launch(fused_ln_mlp, c, hidden)
     return out
 
 
@@ -96,6 +99,7 @@ def fused_ln_mlp(h, shortcut, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, gamma):
 
 
 fused_ln_mlp.launches = 0
+fused_ln_mlp.launches_by_width = {}  # (C, hidden) -> launches
 
 
 # --------------------- fast ConvNeXt forward (serving) ---------------------

@@ -80,8 +80,33 @@ convnext_pico, 63×63×3 triplets + 25 metadata features) on the card:
    bf16 within 0.01 of f32), the kernel's share of the bf16 forward, and
    ``cli.train`` for ``.r2`` (1 epoch at batch 64, 12 launches a train step
    and an eval batch);
-10. a ``{"kernels": [...]}`` line, alerts/s for each scorer (information only);
-11. the card's name and power limit, then as the last line
+10. widths: both kernels against their plain versions at the four stage
+    shapes of convnext atto, femto, nano, tiny, small and base at batch 256
+    (f32 rtol 1e-4 / atol 1e-5, bf16 3e-2; ``fused_ln_mlp`` at hidden 4C,
+    2C and 3C; a ragged batch and row count), C = 64 / 128 / 256 / 512 in
+    the tuned kernels and every other width in ``csrc/any_width.cu``; one
+    f32 forward of mm_ConvNeXt at each size at batch 64 against the plain
+    model (scores 1e-5, logits rtol 1e-4 / atol 1e-5; launches = the sum
+    of the depths), a train step kernel vs plain at atto and base (loss
+    rtol 1e-6, gradients 1e-4 of their largest entry), and
+    ``inceptionnext_atto`` / ``inceptionnext_base`` forwards;
+11. daemon: ``cli.serve`` in-process on phase 6's flagship run at batch
+    3072: ``--synthetic 20000`` (every candid once, 12 block launches a
+    batch, alerts/s and latency p50 / p99), ``--avro`` over an 8,192-packet
+    ``synthetic_avro_ocf`` archive with 9 corrupt stamps with and without
+    ``--bf16-transfer`` (drop flags equal ``AlertStreamScorer``'s own mask,
+    bf16 transfer within 0.01 of f32), a bursty trickle (2,000 alerts
+    every second for 5 s, max wait 100 ms) whose p99 latency stays under
+    the gap between bursts (the idle drain), ``stop()`` mid-stream;
+12. val: ``cli.val --calibrate`` on that run's val split writes
+    ``perf.json`` with the JAX CLI's keys; ``cli.serve --temperature auto``
+    reports its temperature and serves ``calibrate_scores`` of the T = 1
+    scores within 1e-3;
+13. a ``{"kernels": [...]}`` line (launches by path and by width, the
+    variant and source that took each width), alerts/s for each scorer
+    and the daemon (information only), the per-width times in a table and
+    in ``build/smoke_widths.json``;
+14. the card's name and power limit, then as the last line
     ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero and prints no result.  So does a host
@@ -214,11 +239,15 @@ def phase_setup(state: dict) -> None:
     for text, kernels in notes.items():
         print(f"  ptxas: {text} [{', '.join(sorted(set(kernels)))}]", flush=True)
     # a build that lost the tensor-core path must not pass
-    hgmma = {k: n for k, n in _build.sass_opcode_counts("HGMMA").items() if "bf16" in k}
+    counts = _build.sass_opcode_counts("HGMMA")
+    hgmma = {k: n for k, n in counts.items() if "bf16" in k}
     print(f"  HGMMA instructions in the bf16 kernels: {sorted(hgmma.values())}", flush=True)
     check(len(hgmma) == 12 and min(hgmma.values()) > 0,
           "all 12 bf16 kernels (fused_ln_mlp, the block kernel with and without "
           "its input tile in shared memory, x 4 widths) hold HGMMA instructions")
+    any_width = sorted(k for k in counts if "anyw" in k)
+    check(len(any_width) == 4, f"the any-width kernels (2 functions x float32 / bfloat16) "
+                               f"are in the library: {any_width}")
 
 
 # ------------------------------ phase 2 ------------------------------
@@ -915,6 +944,7 @@ def phase_train(state: dict) -> None:
             check(d <= 1e-6, "best_model.pth loads strict and scores the val split "
                              "within 1e-6 of the trainer's best-epoch predictions")
     result = runs[-1][0]
+    state["flagship_run"] = result["model_dir"]  # served in "daemon", validated in "val"
     with open(os.path.join(result["model_dir"], "report.json")) as f:
         report = json.load(f)
     check(set(report) == REPORT_KEYS and set(report["Training history"]) == HISTORY_KEYS
@@ -1079,6 +1109,8 @@ def _kernel_counts() -> dict:
 
 
 def _zero_kernel_counts() -> None:
+    """Both launch counts to 0 (``launches_by_width`` keeps the whole run's
+    launches by width for the kernels line)."""
     from btsbot_tpu_torch.ops.convnext_block import convnext_block_fused
     from btsbot_tpu_torch.ops.ln_mlp import fused_ln_mlp
     convnext_block_fused.launches = 0
@@ -1765,6 +1797,409 @@ def phase_inceptionnext(state: dict) -> None:
                               "rates": rates, "shares": shares, "cli_s": secs}
 
 
+# ------------------------------ widths ------------------------------
+
+WIDTH_SIZES = ("atto", "femto", "nano", "tiny", "small", "base")
+WIDTHS_BATCH = 256           # the kernels against their plain versions
+WIDTHS_MODEL_BATCH = 64      # a forward and a train step of each size
+WIDTHS_INCEPTION = ("inceptionnext_atto", "inceptionnext_base")
+WIDTH_FORWARD_LAUNCHES: dict = {}  # kind -> (kernel, launches in its forward)
+
+
+def _stage_shapes(kind: str) -> list:
+    """(side, C, depth) of each stage of a ConvNeXt kind at 63×63 input."""
+    from btsbot_tpu_torch.models.convnext import convnext_spec
+    spec = convnext_spec(kind)
+    return list(zip((15, 7, 3, 1), spec["dims"], spec["depths"]))
+
+
+def _check_kernel(name, fn, ref, args, dname, work, results, key, where) -> None:
+    """One kernel call against its plain version on the same inputs; its
+    time, the plain version's and the bound go to ``results[key]`` with
+    ``where`` (size and shape)."""
+    import torch
+    with torch.inference_mode():
+        got = fn(*args)
+        want = ref(*args)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ok = torch.allclose(got.float(), want.float(), **TOL[dname])
+        ms = time_ms(lambda: fn(*args), iters=5, warmup=1)
+        plain_ms = time_ms(lambda: ref(*args), iters=5, warmup=1)
+    bound_ms, bound_by = _bound(*work, dname)
+    results.setdefault(key, []).append(dict(
+        where, dtype=dname, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by))
+    check(ok, f"{name}: max|d|={err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by})")
+
+
+def _width_kernels(size: str, results: dict) -> None:
+    """Both kernels against their plain versions at one ConvNeXt size's four
+    stage shapes, batch 256, f32 and bf16; fused_ln_mlp at hidden 4C, 2C,
+    3C; a ragged batch and a ragged row count."""
+    import torch
+    from btsbot_tpu_torch.ops import _build
+    from btsbot_tpu_torch.ops.convnext_block import (
+        convnext_block_fused, convnext_block_reference, depthwise_conv7_reference)
+    from btsbot_tpu_torch.ops.ln_mlp import fused_ln_mlp, ln_mlp_reference
+
+    lib = _build.library()
+    for side, c, _ in _stage_shapes(f"convnext_{size}"):
+        m = WIDTHS_BATCH * side * side
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            item = dtype.itemsize
+            x, p = _block_inputs(side, c, dtype, seed=c, batch=WIDTHS_BATCH)
+            variant = _build.kernel_variant(c, 4 * c)
+            w_bytes = sum(t.numel() for t in p) * item
+            tag = f"{size} C={c} ({WIDTHS_BATCH},{side},{side}) {dname} {variant}"
+            where = {"size": size, "shape": [WIDTHS_BATCH, side, side, c]}
+            _check_kernel(f"convnext_block_fused {tag}", convnext_block_fused,
+                          convnext_block_reference, (x, *p), dname,
+                          (2 * m * c * item + w_bytes, 16 * m * c * c + 2 * 49 * m * c),
+                          results, ("convnext_block_fused", c, 4 * c), where)
+            h = depthwise_conv7_reference(x, p[0], p[1]).reshape(-1, c)
+            res = x.reshape(-1, c)
+            for ratio in (4, 2, 3):
+                q = p[2:] if ratio == 4 else _block_inputs(
+                    side, c, dtype, seed=c + ratio, batch=1, ratio=ratio)[1][2:]
+                hid = ratio * c
+                _check_kernel(
+                    f"fused_ln_mlp {tag} hidden {ratio}C ({_build.kernel_variant(c, hid)})",
+                    fused_ln_mlp, ln_mlp_reference, (h, res, *q), dname,
+                    (3 * m * c * item + sum(t.numel() for t in q) * item, 4 * m * c * hid),
+                    results, ("fused_ln_mlp", c, hid), where)
+            # ragged: a partial batch, and rows one past a tile edge
+            tm = (lib.btsbot_any_width_rows(m, c, 4 * c) if variant == "any_width"
+                  else lib.btsbot_tile_rows(c))
+            mr = min(3 * tm + 1, m)
+            with torch.inference_mode():
+                xr = x[:7].contiguous()
+                ok = torch.allclose(convnext_block_fused(xr, *p).float(),
+                                    convnext_block_reference(xr, *p).float(), **TOL[dname])
+                ok &= torch.allclose(fused_ln_mlp(h[:mr], res[:mr], *p[2:]).float(),
+                                     ln_mlp_reference(h[:mr], res[:mr], *p[2:]).float(),
+                                     **TOL[dname])
+                torch.cuda.synchronize()
+            check(tm > 0 and ok, f"both kernels at a ragged size ({tag}, block B=7, "
+                                 f"ln_mlp M={mr}, tile {tm} rows)")
+            del x, p, h, res
+        torch.cuda.empty_cache()
+
+
+def _width_model(kind: str, train: bool) -> None:
+    """One f32 forward of mm_ConvNeXt with ``kind`` at batch 64 against the
+    plain model (every block launched once), and with ``train`` one f32
+    train step through the kernels against one through the plain blocks."""
+    import numpy as np
+    import torch
+    from btsbot_tpu_torch.models.factory import build_model
+
+    config = _train_config(model_kind=kind)
+    n = WIDTHS_MODEL_BATCH
+    depth = sum(d for _, _, d in _stage_shapes(kind))
+    kernel = "fused_ln_mlp" if "inception" in kind else "convnext_block_fused"
+    model = build_model(config, dtype=torch.float32, device=DEVICE, seed=0)
+    _randomise(model, seed=1)
+    model.eval()
+    images = torch.from_numpy(_normalised_triplets(n, seed=51)).to(DEVICE)
+    meta = torch.from_numpy(np.random.default_rng(52).normal(
+        size=(n, len(META_COLS))).astype(np.float32)).to(DEVICE)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        _zero_kernel_counts()
+        got = model(images, meta).reshape(-1)
+        torch.cuda.synchronize()
+        counts = _kernel_counts()
+        want = model(images, meta, plain=True).reshape(-1)
+    dl = (got - want).abs().max().item()
+    ds = (torch.sigmoid(got) - torch.sigmoid(want)).abs().max().item()
+    print(f"  {kind} f32 forward, batch {n}: launches {counts}; logits in "
+          f"[{want.min().item():.3g}, {want.max().item():.3g}], max|d| logits {dl:.3g}, "
+          f"scores {ds:.3g}", flush=True)
+    check(counts[kernel] == depth and sum(counts.values()) == depth,
+          f"{kind}: {depth} {kernel} launches a forward (sum of depths)")
+    WIDTH_FORWARD_LAUNCHES[kind] = (kernel, depth)
+    check(ds <= 1e-5 and torch.allclose(got, want, rtol=1e-4, atol=1e-5),
+          f"{kind}: f32 scores within 1e-5 (logits rtol 1e-4 / atol 1e-5) of the plain "
+          f"model")
+    if not train:
+        return
+    labels = torch.from_numpy((np.arange(n) % 3 == 0).astype(np.float32)).to(DEVICE)
+    batch = (images, meta, labels, 2.0)
+    weights = model.state_dict()
+    loss_k, grads_k, n_k = _one_step(config, weights, batch)
+    loss_p, grads_p, n_p = _one_step(config, weights, batch, plain=True)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    worst, worst_name = max(
+        ((grads_k[k] - g).abs().max().item() / max(g.abs().max().item(), 1e-30), k)
+        for k, g in grads_p.items())
+    print(f"  {kind} f32 train step: loss {loss_k:.8f} kernel / {loss_p:.8f} plain "
+          f"(rel {rel:.3g}); worst gradient max|d|/max|g| = {worst:.3g} ({worst_name})",
+          flush=True)
+    check(n_k == depth and n_p == 0, f"{kind}: {depth} block launches a train step")
+    check(rel <= 1e-6 and worst <= 1e-4, f"{kind}: train-step loss within rtol 1e-6 and "
+                                         f"every gradient within 1e-4 of its largest entry")
+
+
+def phase_widths(state: dict) -> None:
+    """Both kernels at every ConvNeXt width (Queue C1): the stage shapes of
+    atto, femto, nano, tiny, small and base against the plain versions, one
+    f32 forward of each size against the plain model, a train step at atto
+    and base, and InceptionNeXt atto and base."""
+    results: dict = {}
+    for size in WIDTH_SIZES:
+        _width_kernels(size, results)
+    for size in WIDTH_SIZES:
+        _width_model(f"convnext_{size}", train=size in ("atto", "base"))
+    for kind in WIDTHS_INCEPTION:
+        _width_model(kind, train=False)
+    state["width_results"] = results
+
+
+# ------------------------------ daemon ------------------------------
+
+DAEMON_SYNTHETIC = 20000     # the saturated source
+DAEMON_AVRO = 8192           # packets in the Avro OCF archive
+# the trickle: bursts of TRICKLE_BURST alerts every TRICKLE_PERIOD_S seconds
+# (2,000 alerts/s for 5 s).  A steady 2,000 alerts/s never leaves the queue
+# empty for the daemon's 50 ms idle poll, so its idle drain shows between
+# bursts: each batch is finished while the source is idle, before the next
+# burst, instead of when the next batch is launched.
+TRICKLE_BURST, TRICKLE_PERIOD_S, TRICKLE_BURSTS = 2000, 1.0, 5
+TRICKLE_WAIT_MS = 100.0
+
+
+def _serve_cli(args: list, out: str) -> tuple:
+    """``cli.serve.main`` in-process, results to ``out``: (stats, result
+    rows, its stderr, block-kernel launches)."""
+    import contextlib
+    import io
+    import torch
+    from btsbot_tpu_torch.cli.serve import main as serve_main
+    from btsbot_tpu_torch.ops.convnext_block import convnext_block_fused
+
+    err = io.StringIO()
+    torch.cuda.synchronize()
+    convnext_block_fused.launches = 0
+    with contextlib.redirect_stderr(err):
+        stats = serve_main(args + ["--out", out, "--device", DEVICE])
+    torch.cuda.synchronize()
+    launches = convnext_block_fused.launches
+    with open(out) as f:
+        rows = [json.loads(line) for line in f]
+    return stats, rows, err.getvalue(), launches
+
+
+def _corrupt_avro(path: str, seed: int) -> list:
+    """A ``synthetic_avro_ocf`` archive of DAEMON_AVRO packets written to
+    ``path`` with some stamps corrupt (not gzip, an all-NaN science
+    cutout, an all-zero template, a missing difference); returns its
+    records as the daemon reads them."""
+    import numpy as np
+    from btsbot_tpu_torch.data.avro import read_ocf, write_ocf
+    from btsbot_tpu_torch.data.fits import write_fits_image
+    from btsbot_tpu_torch.data.synthetic import synthetic_avro_ocf
+
+    schema, records = read_ocf(synthetic_avro_ocf(DAEMON_AVRO, META_COLS, seed=seed))
+    nan = gzip.compress(write_fits_image(np.full((63, 63), np.nan, np.float32)))
+    zero = gzip.compress(write_fits_image(np.zeros((63, 63), np.float32)))
+    for k, i in enumerate(range(5, DAEMON_AVRO, 997)):
+        rec = records[i]
+        if k % 4 == 0:
+            rec["cutoutScience"]["stampData"] = b"not a gzip stream"
+        elif k % 4 == 1:
+            rec["cutoutScience"]["stampData"] = nan
+        elif k % 4 == 2:
+            rec["cutoutTemplate"]["stampData"] = zero
+        else:
+            rec["cutoutDifference"] = None
+    with open(path, "wb") as f:
+        f.write(write_ocf(schema, records, codec="deflate", block_records=64))
+    return records
+
+
+def phase_daemon(state: dict) -> None:
+    """The broker daemon (``cli.serve``) on the flagship run of phase 6 at
+    batch 3072: a saturated synthetic source, an Avro OCF archive with
+    corrupt stamps (f32 and bf16 pixel transfer), a trickle source for the
+    idle drain, and ``stop()`` mid-stream."""
+    import numpy as np
+    import threading
+    import torch
+    from btsbot_tpu_torch.engine.checkpoint import load_run_dir
+    from btsbot_tpu_torch.engine.serve import AlertStreamConsumer, AlertStreamScorer
+    from btsbot_tpu_torch.data.synthetic import synthetic_packets
+
+    run_dir = state["flagship_run"]
+    tmp, _ = _smoke_split(state)
+    out = os.path.join(tmp, "daemon.jsonl")
+    config, weights = load_run_dir(run_dir)
+    check(config["model_kind"] == FLAGSHIP_CONFIG["model_kind"],
+          f"the daemon serves the flagship run {run_dir}")
+    base = [run_dir, "--batch", str(BATCH)]
+    results = {}
+
+    # ---- saturated: N synthetic packets
+    stats, rows, err, launches = _serve_cli(base + ["--synthetic", str(DAEMON_SYNTHETIC)],
+                                            out)
+    from btsbot_tpu_torch.engine.serve import _bucket_ladder
+    buckets = len(_bucket_ladder(BATCH))  # the warm-up runs each bucket once
+    print(f"  --synthetic {DAEMON_SYNTHETIC}: {stats['alerts_per_s']:.1f} alerts/s, "
+          f"latency p50 {stats['latency_p50_ms']} ms p99 {stats['latency_p99_ms']} ms, "
+          f"{stats['batches']} batches, {launches} block launches on {state['gpu']}",
+          flush=True)
+    check([r["candid"] for r in rows] == list(range(DAEMON_SYNTHETIC))
+          and not any(r["dropped"] for r in rows)
+          and all(0.0 <= r["score"] <= 1.0 for r in rows),
+          f"every candid of {DAEMON_SYNTHETIC} once, in order, scored")
+    check(launches == 12 * (stats["batches"] + buckets),
+          f"12 block-kernel launches per daemon batch ({stats['batches']} batches + "
+          f"{buckets} warm-up)")
+    results["synthetic"] = stats
+    daemon_launches = launches
+
+    # ---- an Avro OCF archive with corrupt stamps, f32 and bf16 transfer; full
+    # batches only (a long max wait), so the daemon's batches are the direct
+    # scorer's
+    path = os.path.join(tmp, "night.avro")
+    records = _corrupt_avro(path, seed=61)
+    direct = AlertStreamScorer(config, weights, batch_size=BATCH, device=DEVICE)
+    want_scores, want_drop = direct(records)
+    served = {}
+    for name, extra in (("f32", []), ("bf16", ["--bf16-transfer"])):
+        stats, rows, err, launches = _serve_cli(
+            base + ["--avro", path, "--max-wait-ms", "60000"] + extra, out)
+        served[name] = rows
+        drop = np.array([r["dropped"] for r in rows])
+        print(f"  --avro {DAEMON_AVRO} ({name} transfer): {stats['alerts_per_s']:.1f} "
+              f"alerts/s, p50 {stats['latency_p50_ms']} ms, p99 "
+              f"{stats['latency_p99_ms']} ms, {int(drop.sum())} dropped on {state['gpu']}",
+              flush=True)
+        n_bad = len(range(5, DAEMON_AVRO, 997))
+        check([r["candid"] for r in rows] == [r["candid"] for r in records]
+              and np.array_equal(drop, want_drop) and int(drop.sum()) == n_bad,
+              f"avro {name}: every candid once; the drop flags are AlertStreamScorer's "
+              f"own mask on the same packets ({n_bad} dropped)")
+        daemon_launches += launches
+        results[f"avro_{name}"] = stats
+    keep = ~want_drop
+    s32 = np.array([r["score"] for r, k in zip(served["f32"], keep) if k])
+    s16 = np.array([r["score"] for r, k in zip(served["bf16"], keep) if k])
+    d = float(np.abs(s16 - s32).max())
+    d_direct = float(np.abs(s32 - want_scores[keep]).max())
+    print(f"  avro scores: bf16 vs f32 transfer max|d|={d:.3g}; f32 transfer vs the "
+          f"scorer called directly max|d|={d_direct:.3g}", flush=True)
+    check(d <= 0.01 and d_direct <= 1e-5,
+          "bf16-transfer scores within 0.01 of f32-transfer; f32 within 1e-5 of the "
+          "scorer called directly on the same batches (6-decimal wire format)")
+
+    # ---- a trickle: bursts with idle gaps, partial batches (max wait 100 ms)
+    n = TRICKLE_BURST * TRICKLE_BURSTS
+    packets = list(synthetic_packets(n, META_COLS, seed=62))
+    scorer = AlertStreamScorer(config, weights, batch_size=BATCH, device=DEVICE)
+    scorer.warmup()
+
+    def trickle():
+        t0 = time.monotonic()
+        for b in range(TRICKLE_BURSTS):
+            ahead = b * TRICKLE_PERIOD_S - (time.monotonic() - t0)
+            if ahead > 0:
+                time.sleep(ahead)
+            yield from packets[b * TRICKLE_BURST:(b + 1) * TRICKLE_BURST]
+
+    got = []
+    torch.cuda.synchronize()
+    _zero_kernel_counts()
+    consumer = AlertStreamConsumer(scorer, trickle(), sink=lambda p, s, d: got.extend(s),
+                                   max_wait_s=TRICKLE_WAIT_MS / 1e3)
+    stats = consumer.run()
+    launches = _kernel_counts()["convnext_block_fused"]
+    daemon_launches += launches
+    print(f"  trickle, {TRICKLE_BURST} alerts every {TRICKLE_PERIOD_S} s x {TRICKLE_BURSTS}, "
+          f"max_wait {TRICKLE_WAIT_MS} ms: {stats['batches']} batches, latency p50 "
+          f"{stats['latency_p50_ms']} ms p99 {stats['latency_p99_ms']} ms on {state['gpu']}",
+          flush=True)
+    check(len(got) == n == stats["alerts_scored"] and launches == 12 * stats["batches"],
+          f"trickle: all {n} scored, 12 block launches a batch")
+    check(stats["latency_p99_ms"] < 1e3 * TRICKLE_PERIOD_S,
+          f"trickle: p99 latency under the {TRICKLE_PERIOD_S} s between bursts: every "
+          f"batch is finished while the source is idle (the idle drain), not when the "
+          f"next burst's batch is launched")
+    results["trickle"] = stats
+
+    # ---- stop() mid-stream
+    halt = threading.Event()
+
+    def endless():
+        k = 0
+        while not halt.is_set():
+            yield dict(packets[k % len(packets)], candid=k)
+            k += 1
+
+    consumer = AlertStreamConsumer(scorer, endless(), sink=lambda *a: None)
+    consumer.start()
+    deadline = time.monotonic() + 60
+    while consumer.stats["alerts_scored"] < 2 * BATCH and time.monotonic() < deadline:
+        time.sleep(0.05)
+    stats = consumer.stop(timeout=60)
+    halt.set()
+    print(f"  stop() mid-stream: {stats['alerts_in']} in, {stats['alerts_scored']} "
+          f"scored", flush=True)
+    check(stats["alerts_scored"] == stats["alerts_in"] >= 2 * BATCH,
+          "stop() mid-stream leaves alerts_scored == alerts_in")
+    state["daemon"] = {"stats": results, "launches": daemon_launches}
+
+
+# ------------------------------ val ------------------------------
+
+def phase_val(state: dict) -> None:
+    """``cli.val --calibrate`` on the flagship run's val split, then
+    ``cli.serve --temperature auto`` on that run against ``calibrate_scores``
+    of its uncalibrated scores."""
+    import contextlib
+    import io
+    import numpy as np
+    from btsbot_tpu_torch.cli.val import main as val_main
+    from btsbot_tpu_torch.metrics.calibration import calibrate_scores
+
+    run_dir = state["flagship_run"]
+    tmp, data_dir = _smoke_split(state)
+    perf_path = os.path.join(run_dir, "perf.json")
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        summary = val_main([run_dir, "--data-dir", data_dir, "--calibrate",
+                            "--device", DEVICE])
+    secs = time.perf_counter() - t0
+    print("  " + out.getvalue().strip().replace("\n", "\n  "), flush=True)
+    with open(perf_path) as f:
+        perf = json.load(f)
+    cal = perf.get("calibration", {})
+    check(set(cal) == {"temperature", "nll_before", "nll_after", "ece_before",
+                       "ece_after"} and cal["nll_after"] <= cal["nll_before"] + 1e-9
+          and set(perf) == SUMMARY_KEYS | {"calibration"}
+          and perf["calibration"] == json.loads(json.dumps(summary["calibration"])),
+          f"cli.val --calibrate wrote perf.json with the JAX CLI's keys and "
+          f"calibration.temperature {cal.get('temperature')} ({secs:.1f} s)")
+    # full batches only (a long max wait): both runs score the same batches
+    args = [run_dir, "--batch", str(BATCH), "--synthetic", "4096", "--max-wait-ms", "60000"]
+    out = os.path.join(tmp, "val_serve.jsonl")
+    _, plain_rows, _, _ = _serve_cli(args, out)
+    _, rows, err, _ = _serve_cli(args + ["--temperature", "auto"], out)
+    t = cal["temperature"]
+    check(f"calibration temperature {t}" in err,
+          f"cli.serve --temperature auto reports the temperature {t}")
+    s1 = np.array([r["score"] for r in plain_rows])
+    st = np.array([r["score"] for r in rows])
+    d = float(np.abs(st - calibrate_scores(s1, t)).max())
+    print(f"  served at T={t} vs calibrate_scores of the T=1 scores: max|d|={d:.3g}",
+          flush=True)
+    check(d <= 1e-3, "calibrated serving within 1e-3 of calibrate_scores(T=1 scores)")
+    state["val"] = {"temperature": t, "secs": secs}
+
+
 # ------------------------------ phase 10 ------------------------------
 
 def _kernel_entry(name, source, replaces, launches, rows):
@@ -1855,14 +2290,73 @@ def phase_report(state: dict) -> None:
         + f"; cli.train 1 epoch {t['cli_s']:.1f} s, frozen_fusion over MaxViT "
         f"{t['fusion_cli_s']:.1f} s; maxvit_tiny_rw_160 bf16 {t['rate160']:.1f} alerts/s "
         f"on {state['gpu']}", flush=True)
+    # the widths phase: each size's forward, and every width each kernel was
+    # launched at in this run (by variant: the tuned sources or any_width.cu)
+    from btsbot_tpu_torch.ops import _build
+    from btsbot_tpu_torch.ops.convnext_block import convnext_block_fused
+    from btsbot_tpu_torch.ops.ln_mlp import fused_ln_mlp
+    for kind, (name, n) in WIDTH_FORWARD_LAUNCHES.items():
+        entry = kernels[0] if name == "convnext_block_fused" else kernels[1]
+        entry["launches_by_path"][f"mm_ConvNeXt {kind} forward (widths)"] = n
+    kernels[0]["launches_by_path"]["mm_ConvNeXt cli.serve daemon"] = state["daemon"]["launches"]
+    for entry, fn in zip(kernels, (convnext_block_fused, fused_ln_mlp)):
+        entry["max_abs_err"] = max([entry["max_abs_err"]] + [
+            r["max_abs_err"] for (name, _, _), rows in state["width_results"].items()
+            if name == entry["name"] for r in rows])
+        by = {}
+        for (c, hidden), n in sorted(fn.launches_by_width.items()):
+            by.setdefault(_build.kernel_variant(c, hidden), {})[f"{c}x{hidden}"] = n
+        entry["launches_by_width"] = by
+        entry["widths"] = {v: sorted({int(k.split("x")[0]) for k in d}) for v, d in by.items()}
+    kernels[0]["sources_by_variant"] = {
+        "tuned": "btsbot_tpu_torch/csrc/convnext_block.cu",
+        "any_width": "btsbot_tpu_torch/csrc/any_width.cu"}
+    kernels[1]["sources_by_variant"] = {
+        "tuned": "btsbot_tpu_torch/csrc/ln_mlp.cu",
+        "any_width": "btsbot_tpu_torch/csrc/any_width.cu"}
+    _report_widths(state)
+    _report_daemon(state)
     state["kernels_line"] = json.dumps({"kernels": kernels})
+
+
+def _report_widths(state: dict) -> None:
+    """Each size's stage shapes at batch 256 (phase "widths"): the block and
+    fused_ln_mlp at hidden 4C as a table, every launch (2C and 3C too) in
+    ``build/smoke_widths.json`` beside the card's name."""
+    rows = [{"kernel": name, "C": c, "hidden": hidden, **r}
+            for (name, c, hidden), results in state["width_results"].items()
+            for r in results]
+    from btsbot_tpu_torch.ops import _build
+    order = {s: i for i, s in enumerate(WIDTH_SIZES)}
+    rows.sort(key=lambda r: (order[r["size"]], r["C"], r["kernel"], r["hidden"], r["dtype"]))
+    print(f"  per-width launches at batch {WIDTHS_BATCH} (ms: kernel / plain / bound) on "
+          f"{state['gpu']}:", flush=True)
+    for r in rows:
+        if r["hidden"] == 4 * r["C"]:
+            print(f"    {r['size']:5s} {r['kernel']:20s} {str(tuple(r['shape'])):19s} "
+                  f"{r['dtype']:8s} {_build.kernel_variant(r['C'], r['hidden']):9s} "
+                  f"{r['ms']:.4f} / {r['plain_ms']:.4f} / {r['bound_ms']:.4f} "
+                  f"({r['bound_by']}) max|d|={r['max_abs_err']:.3g}", flush=True)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with open(os.path.join(ROOT, "build", "smoke_widths.json"), "w") as f:
+        json.dump({"card": state["gpu"], "batch": WIDTHS_BATCH, "rows": rows}, f, indent=1)
+
+
+def _report_daemon(state: dict) -> None:
+    for name, st in state["daemon"]["stats"].items():
+        print(f"  daemon {name}: {st['alerts_per_s']:.1f} alerts/s, latency p50 "
+              f"{st['latency_p50_ms']} ms, p99 {st['latency_p99_ms']} ms, "
+              f"{st['batches']} batches on {state['gpu']}", flush=True)
+    print(f"  cli.val --calibrate: temperature {state['val']['temperature']}, "
+          f"{state['val']['secs']:.1f} s on {state['gpu']}", flush=True)
 
 
 PHASES = [("setup", phase_setup), ("kernels", phase_kernels),
           ("main path", phase_main_path), ("fast path", phase_fast_path),
           ("forward split", phase_forward_split), ("train", phase_train),
           ("families", phase_families), ("maxvit", phase_maxvit),
-          ("inceptionnext", phase_inceptionnext), ("report", phase_report)]
+          ("inceptionnext", phase_inceptionnext), ("widths", phase_widths),
+          ("daemon", phase_daemon), ("val", phase_val), ("report", phase_report)]
 
 
 def main() -> int:

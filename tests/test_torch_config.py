@@ -61,7 +61,12 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import btsbot_tpu_torch.metrics.diagnostics, btsbot_tpu_torch.ops.augment\n"
         "import btsbot_tpu_torch.models.maxvit, btsbot_tpu_torch.interop.maxvit_convert\n"
         "import btsbot_tpu_torch.ops.resize, btsbot_tpu_torch.interop.hf\n"
+        "import btsbot_tpu_torch.cli.serve, btsbot_tpu_torch.cli.val\n"
+        "import btsbot_tpu_torch.data.avro, btsbot_tpu_torch.data.kafka\n"
+        "import btsbot_tpu_torch.metrics.calibration\n"
+        "import btsbot_tpu_torch.utils.profiling, btsbot_tpu_torch.utils.compile_cache\n"
         "btsbot_tpu_torch.AlertScorer, btsbot_tpu_torch.build_model\n"
+        "btsbot_tpu_torch.AlertStreamConsumer\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
