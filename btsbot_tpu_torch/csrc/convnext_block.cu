@@ -45,9 +45,17 @@
 // and the last stage has only M / 64 blocks for 132 SMs.  PERF.md has the
 // times.
 //
+// Every other width in bfloat16 runs the same kernel with the channels
+// padded inside it (convnext_block_bf16_kernel<CP, true, *>,
+// btsbot_convnext_block_wgmma; the design notes are hopper_mlp.cuh's): the
+// input tile stays c 2 bytes a pixel, the taps run over the real c, and
+// where CP > 512 leaves no room for the 49 taps' weights beside Xn they
+// are read from device memory.
+//
 // float32 keeps exact float FMAs on the CUDA cores (convnext_block_kernel
 // below with block_common.cuh's mlp_tile; the depthwise weights staged
-// transposed in the shared memory the weight chunks use afterwards).
+// transposed in the shared memory the weight chunks use afterwards);
+// any_width.cu at every other width.
 
 #include "block_common.cuh"
 #include "hopper_mlp.cuh"
@@ -170,27 +178,32 @@ inline __host__ __device__ Reach reach_of(int H, int W) {
   q.taps = (2 * q.ry + 1) * (2 * q.rx + 1);
   return q;
 }
-// Bytes of the input tile with its halo, and of the taps' weights.
+// Bytes of the input tile with its halo (rows of c channels), and of the
+// taps' weights in shared memory.
 constexpr long long tile_bytes(int tm, int c, int halo) {
   return (static_cast<long long>(tm) + 2LL * halo) * c * 2;
 }
-constexpr int taps_bytes(int c, int taps) { return taps * c * 4; }
+template <class P> constexpr int taps_bytes(int c, int taps) {
+  return P::TAPS_IN_SMEM ? taps * c * 4 : 0;
+}
 // Ring stages beside the input tile (0: the tile does not fit), and with
 // the taps' weights alone.
-template <int C> constexpr int tiled_stages(int halo, int taps) {
-  return tile_bytes(Plan<C>::TM, C, halo) > kSmemLimit
+template <class P> constexpr int tiled_stages(int c, int halo, int taps) {
+  return tile_bytes(P::TM, c, halo) > kSmemLimit
              ? 0
-             : stages_that_fit(Plan<C>::SMEM_LIMIT, Plan<C>::XN_BYTES,
-                               static_cast<int>(tile_bytes(Plan<C>::TM, C, halo)) +
-                                   taps_bytes(C, taps));
+             : stages_that_fit(P::SMEM_LIMIT, P::XN_BYTES,
+                               static_cast<int>(tile_bytes(P::TM, c, halo)) +
+                                   taps_bytes<P>(c, taps));
 }
-template <int C> constexpr int untiled_stages(int taps) {
-  return stages_that_fit(Plan<C>::SMEM_LIMIT, Plan<C>::XN_BYTES, taps_bytes(C, taps));
+template <class P> constexpr int untiled_stages(int c, int taps) {
+  return stages_that_fit(P::SMEM_LIMIT, P::XN_BYTES, taps_bytes<P>(c, taps));
 }
 // The four shapes of the flagship forward keep their input tile in shared
 // memory (halo and taps as reach_of gives them for side 15, 7, 3, 1).
-static_assert(tiled_stages<64>(48, 49) >= kMinStages && tiled_stages<128>(24, 49) >= kMinStages &&
-                  tiled_stages<256>(8, 25) >= kMinStages && tiled_stages<512>(0, 1) >= kMinStages,
+static_assert(tiled_stages<Plan<64>>(64, 48, 49) >= kMinStages &&
+                  tiled_stages<Plan<128>>(128, 24, 49) >= kMinStages &&
+                  tiled_stages<Plan<256>>(256, 8, 25) >= kMinStages &&
+                  tiled_stages<Plan<512>>(512, 0, 1) >= kMinStages,
               "a flagship stage no longer fits the shared memory of a block");
 
 // The shortcut of tile row r: from the input tile in shared memory, or
@@ -203,8 +216,10 @@ struct TileShortcut {
   }
 };
 
-template <int C, bool kTile>
-__global__ void __maxnreg__(Plan<C>::MAX_REGS)
+// C = CP (tuned) or the real width c <= CP (ANY), pixels of c channels in
+// device memory.
+template <int CP, bool ANY, bool kTile>
+__global__ void __maxnreg__((Plan<CP, ANY>::MAX_REGS))
     convnext_block_bf16_kernel(const __grid_constant__ CUtensorMap map1,
                                const __grid_constant__ CUtensorMap map2,
                                const bf16* __restrict__ x, const bf16* __restrict__ dw_w,
@@ -212,17 +227,19 @@ __global__ void __maxnreg__(Plan<C>::MAX_REGS)
                                const bf16* __restrict__ ln_b, const bf16* __restrict__ b1,
                                const bf16* __restrict__ b2, const bf16* __restrict__ gamma,
                                bf16* __restrict__ out, int B, int H, int W, int hidden,
-                               int stages) {
-  using P = Plan<C>;
+                               int stages, int c_real) {
+  using P = Plan<CP, ANY>;
+  const int c = ANY ? c_real : CP;
+  const int row_bytes = c * 2;
   const Reach q = reach_of(H, W);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   unsigned char* xn = base + stages * kUnitBytes;
-  unsigned char* xin = xn + P::XN_BYTES;  // [TM + 2 halo][C], rows row0 - halo ...
+  unsigned char* xin = xn + P::XN_BYTES;  // [TM + 2 halo][c], rows row0 - halo ...
   const int tile_rows = kTile ? P::TM + 2 * q.halo : 0;
-  float* dws = reinterpret_cast<float*>(xin + tile_rows * P::ROW_BYTES);  // [tap][C]
-  unsigned char* bars = reinterpret_cast<unsigned char*>(dws + q.taps * C);
+  float* dws = reinterpret_cast<float*>(xin + tile_rows * row_bytes);  // [tap][c]
+  unsigned char* bars = reinterpret_cast<unsigned char*>(dws + (P::TAPS_IN_SMEM ? q.taps * c : 0));
   Ring ring;
   ring.tiles = smem_u32(base);
   ring.full = smem_u32(bars);
@@ -232,6 +249,7 @@ __global__ void __maxnreg__(Plan<C>::MAX_REGS)
   init_barriers(ring.full, ring.empty, xin_bar, stages);
   const long long M = static_cast<long long>(B) * H * W;
   const long long row0 = static_cast<long long>(blockIdx.x) * P::TM;
+  const Slice<P> sl = Slice<P>::of_block();
 
   if (threadIdx.x >= kConsumerThreads) {
     if (threadIdx.x == kConsumerThreads) {
@@ -239,42 +257,41 @@ __global__ void __maxnreg__(Plan<C>::MAX_REGS)
         // the input tile with its halo, clipped to the rows that exist
         const long long lo = row0 - q.halo > 0 ? row0 - q.halo : 0;
         const long long hi = row0 + P::TM + q.halo < M ? row0 + P::TM + q.halo : M;
-        const uint32_t bytes = static_cast<uint32_t>(hi - lo) * P::ROW_BYTES;
+        const uint32_t bytes = static_cast<uint32_t>(hi - lo) * row_bytes;
         mbar_expect_tx(xin_bar, bytes);
-        bulk_load_1d(smem_u32(xin) + static_cast<uint32_t>(lo - (row0 - q.halo)) * P::ROW_BYTES,
-                     x + lo * C, bytes, xin_bar);
+        bulk_load_1d(smem_u32(xin) + static_cast<uint32_t>(lo - (row0 - q.halo)) * row_bytes,
+                     x + lo * c, bytes, xin_bar);
       }
-      produce_weights<C>(ring, &map1, &map2, hidden);
+      produce_weights<P>(ring, &map1, &map2, hidden, sl);
     }
   } else {
-    // the taps' weights, transposed from (C, 1, 7, 7) to [tap][C]
     const int nx = 2 * q.rx + 1;
-    for (int i = threadIdx.x; i < q.taps * C; i += kConsumerThreads) {
-      const int t = i / C, c = i - t * C;
-      const int ty = t / nx, tx = t - ty * nx;
-      dws[i] = __bfloat162float(dw_w[c * kTaps + (ty + 3 - q.ry) * 7 + tx + 3 - q.rx]);
+    if constexpr (P::TAPS_IN_SMEM) {
+      // the taps' weights, transposed from (C, 1, 7, 7) to [tap][c]
+      for (int i = threadIdx.x; i < q.taps * c; i += kConsumerThreads) {
+        const int t = i / c, ch = i - t * c;
+        const int ty = t / nx, tx = t - ty * nx;
+        dws[i] = __bfloat162float(dw_w[ch * kTaps + (ty + 3 - q.ry) * 7 + tx + 3 - q.rx]);
+      }
     }
     const int grp = threadIdx.x / P::LPP, l = threadIdx.x % P::LPP;
     uint4 lw[P::VEC], lb[P::VEC], db[P::VEC];
-#pragma unroll
-    for (int vv = 0; vv < P::VEC; ++vv) {
-      lw[vv] = *reinterpret_cast<const uint4*>(ln_w + (vv * P::LPP + l) * 8);
-      lb[vv] = *reinterpret_cast<const uint4*>(ln_b + (vv * P::LPP + l) * 8);
-      db[vv] = *reinterpret_cast<const uint4*>(dw_b + (vv * P::LPP + l) * 8);
-    }
+    load_row_params<P>(ln_w, lw, l, c);
+    load_row_params<P>(ln_b, lb, l, c);
+    load_row_params<P>(dw_b, db, l, c);
     consumer_barrier();                      // the taps' weights are in place
     if constexpr (kTile) mbar_wait(xin_bar, 0);  // and so is the input tile
     // pixel row0 of the input: in the tile, or in x itself (a tap in bounds
     // of its sample is a row of x, so nothing else is ever read)
-    const unsigned char* xc = xin + q.halo * P::ROW_BYTES;
-    if constexpr (!kTile) xc = reinterpret_cast<const unsigned char*>(x + row0 * C);
+    const unsigned char* xc = xin + q.halo * row_bytes;
+    if constexpr (!kTile) xc = reinterpret_cast<const unsigned char*>(x + row0 * c);
 
     // Taps outermost, a lane's rows innermost: a tap's weights are loaded
     // once for RB rows (the taps are bound by shared-memory loads, and the
     // input values themselves cannot be shared between lanes).
     const int hw = H * W;
     constexpr int kRows = P::TM / P::GROUPS;
-    constexpr int RB = kRows < 4 ? kRows : 4;
+    constexpr int RB = kRows < 4 ? kRows : (P::VEC <= 2 ? 4 : 2);  // wide rows: fewer
     for (int i0 = 0; i0 < kRows; i0 += RB) {
       float v[RB][P::VEC][8];
       int py[RB], px[RB];
@@ -290,24 +307,36 @@ __global__ void __maxnreg__(Plan<C>::MAX_REGS)
         const int rem = static_cast<int>(p % hw);
         py[i] = p < M ? rem / W : -8;  // rows past M: no tap in bounds, never stored
         px[i] = rem - (rem / W) * W;
-        xrow[i] = xc + r * P::ROW_BYTES + l * 16;
+        xrow[i] = xc + r * row_bytes + l * 16;
       }
       for (int dy = -q.ry; dy <= q.ry; ++dy) {
         for (int dx = -q.rx; dx <= q.rx; ++dx) {
-          const float* wt = dws + ((dy + q.ry) * nx + dx + q.rx) * C + l * 8;
           float4 wa[P::VEC], wb[P::VEC];
 #pragma unroll
           for (int vv = 0; vv < P::VEC; ++vv) {
-            wa[vv] = *reinterpret_cast<const float4*>(wt + vv * P::LPP * 8);
-            wb[vv] = *reinterpret_cast<const float4*>(wt + vv * P::LPP * 8 + 4);
+            if (!real_vec<P>(vv, l, c)) continue;
+            if constexpr (P::TAPS_IN_SMEM) {
+              const float* wt =
+                  dws + ((dy + q.ry) * nx + dx + q.rx) * c + l * 8 + vv * P::LPP * 8;
+              wa[vv] = *reinterpret_cast<const float4*>(wt);
+              wb[vv] = *reinterpret_cast<const float4*>(wt + 4);
+            } else {  // from device memory, (C, 1, 7, 7): 49 apart a channel
+              const bf16* wt = dw_w + (vv * P::LPP + l) * 8 * kTaps + (dy + 3) * 7 + dx + 3;
+              float f[8];
+#pragma unroll
+              for (int e = 0; e < 8; ++e) f[e] = __bfloat162float(wt[e * kTaps]);
+              wa[vv] = make_float4(f[0], f[1], f[2], f[3]);
+              wb[vv] = make_float4(f[4], f[5], f[6], f[7]);
+            }
           }
-          const int shift = (dy * W + dx) * P::ROW_BYTES;
+          const int shift = (dy * W + dx) * row_bytes;
 #pragma unroll
           for (int i = 0; i < RB; ++i) {
             if (static_cast<unsigned>(py[i] + dy) < static_cast<unsigned>(H) &&
                 static_cast<unsigned>(px[i] + dx) < static_cast<unsigned>(W)) {
 #pragma unroll
               for (int vv = 0; vv < P::VEC; ++vv) {
+                if (!real_vec<P>(vv, l, c)) continue;
                 float xv[8];
                 unpack8(*reinterpret_cast<const uint4*>(xrow[i] + shift + vv * P::LPP * 16), xv);
                 float(&a)[8] = v[i][vv];
@@ -329,75 +358,85 @@ __global__ void __maxnreg__(Plan<C>::MAX_REGS)
 #pragma unroll
           for (int e = 0; e < 8; ++e) v[i][vv][e] += bv[e];
         }
-        layer_norm_to_xn<C>(v[i], lw, lb, xn, grp + (i0 + i) * P::GROUPS, l);
+        layer_norm_to_xn<P>(v[i], lw, lb, xn, grp + (i0 + i) * P::GROUPS, l, c);
       }
     }
     fence_proxy_async();  // Xn was written by ordinary stores, wgmma reads it
     consumer_barrier();
-    consume_mlp<C>(ring, smem_u32(xn), b1, b2, gamma, out, row0, M, hidden,
-                   TileShortcut{xc, P::ROW_BYTES});
+    consume_mlp<P>(ring, smem_u32(xn), b1, b2, gamma, out, row0, M, hidden, c, sl,
+                   TileShortcut{xc, row_bytes});
   }
 }
 
-template <int C>
+template <int CP, bool ANY>
 static cudaError_t launch_block_bf16(const void* x, const void* dw_w, const void* dw_b,
                                      const void* ln_w, const void* ln_b, const void* w1,
                                      const void* b1, const void* w2, const void* b2,
                                      const void* gamma, void* out, int B, int H, int W,
-                                     int hidden, cudaStream_t stream) {
-  using P = Plan<C>;
+                                     int c, int hidden, cudaStream_t stream) {
+  using P = Plan<CP, ANY>;
   const long long M = static_cast<long long>(B) * H * W;
   if (M <= 0) return cudaSuccess;
-  if (hidden <= 0 || hidden % 64 != 0) return cudaErrorInvalidValue;
+  if (hidden <= 0 || hidden % (ANY ? 8 : 64) != 0) return cudaErrorInvalidValue;
   for (const void* p : {x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma,
                         static_cast<const void*>(out)})
     if (!aligned16(p)) return cudaErrorMisalignedAddress;
   // every map fits without the input tile, whatever H and W are
-  static_assert(untiled_stages<C>(kTaps) >= kMinStages, "the taps' weights do not fit");
+  static_assert(untiled_stages<P>(CP, kTaps) >= kMinStages, "the taps' weights do not fit");
   const Reach q = reach_of(H, W);
-  int stages = tiled_stages<C>(q.halo, q.taps);
+  int stages = tiled_stages<P>(c, q.halo, q.taps);
   const bool tiled = stages >= kMinStages;
-  if (!tiled) stages = untiled_stages<C>(q.taps);
+  if (!tiled) stages = untiled_stages<P>(c, q.taps);
   const int extra =
-      taps_bytes(C, q.taps) + (tiled ? static_cast<int>(tile_bytes(P::TM, C, q.halo)) : 0);
+      taps_bytes<P>(c, q.taps) + (tiled ? static_cast<int>(tile_bytes(P::TM, c, q.halo)) : 0);
   const int bytes = smem_bytes(stages, P::XN_BYTES, extra);
   const long long blocks = (M + P::TM - 1) / P::TM;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   CUtensorMap map1, map2;
-  cudaError_t err = weight_map(&map1, w1, hidden, C);
+  cudaError_t err = weight_map(&map1, w1, hidden, c);
   if (err != cudaSuccess) return err;
-  err = weight_map(&map2, w2, C, hidden);
+  err = weight_map(&map2, w2, c, hidden);
   if (err != cudaSuccess) return err;
-  const auto kernel =
-      tiled ? convnext_block_bf16_kernel<C, true> : convnext_block_bf16_kernel<C, false>;
+  const auto kernel = tiled ? convnext_block_bf16_kernel<CP, ANY, true>
+                            : convnext_block_bf16_kernel<CP, ANY, false>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  kernel<<<static_cast<unsigned>(blocks), kBlockThreads, bytes, stream>>>(
+  const dim3 grid(static_cast<unsigned>(blocks), P::SLICES);
+  kernel<<<grid, kBlockThreads, bytes, stream>>>(
       map1, map2, static_cast<const bf16*>(x), static_cast<const bf16*>(dw_w),
       static_cast<const bf16*>(dw_b), static_cast<const bf16*>(ln_w),
       static_cast<const bf16*>(ln_b), static_cast<const bf16*>(b1),
       static_cast<const bf16*>(b2), static_cast<const bf16*>(gamma),
-      static_cast<bf16*>(out), B, H, W, hidden, stages);
+      static_cast<bf16*>(out), B, H, W, hidden, stages, c);
   return cudaGetLastError();
 }
 
+// The tuned kernels (C = 64 / 128 / 256 / 512, hidden in 64-unit steps), or
+// with `any` the padded ones at every C up to kMaxWidth.
 static cudaError_t dispatch_block_bf16(const void* x, const void* dw_w, const void* dw_b,
                                        const void* ln_w, const void* ln_b, const void* w1,
                                        const void* b1, const void* w2, const void* b2,
                                        const void* gamma, void* out, int B, int H, int W,
-                                       int C, int hidden, cudaStream_t stream) {
-  switch (C) {
-    case 64:
-      return launch_block_bf16<64>(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, out, B, H, W, hidden, stream);
-    case 128:
-      return launch_block_bf16<128>(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, out, B, H, W, hidden, stream);
-    case 256:
-      return launch_block_bf16<256>(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, out, B, H, W, hidden, stream);
-    case 512:
-      return launch_block_bf16<512>(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, out, B, H, W, hidden, stream);
-    default:
-      return cudaErrorInvalidValue;
+                                       int C, int hidden, bool any, cudaStream_t stream) {
+#define BTS_LAUNCH(CP, ANY)                                                                 \
+  return launch_block_bf16<CP, ANY>(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, out, \
+                                    B, H, W, C, hidden, stream);
+  if (!any) {
+    switch (C) {
+      case 64: BTS_LAUNCH(64, false)
+      case 128: BTS_LAUNCH(128, false)
+      case 256: BTS_LAUNCH(256, false)
+      case 512: BTS_LAUNCH(512, false)
+      default: return cudaErrorInvalidValue;
+    }
   }
+#define BTS_CASE(CP) case CP: BTS_LAUNCH(CP, true)
+  switch (any_width_plan(C)) {
+    BTS_ANY_WIDTHS(BTS_CASE)
+    default: return cudaErrorInvalidValue;
+  }
+#undef BTS_CASE
+#undef BTS_LAUNCH
 }
 
 }  // namespace hopper
@@ -405,16 +444,16 @@ static cudaError_t dispatch_block_bf16(const void* x, const void* dw_w, const vo
 }  // namespace btsbot
 
 // Rows of the flattened (B*H*W) index that one block of the bfloat16 kernels
-// (both of them) takes at width C; 0 for a width they do not take.
+// (both functions, tuned or "wgmma_any") takes at width C; 0 for a width
+// they do not take.
 extern "C" int btsbot_tile_rows(int C) {
   using namespace btsbot::hopper;
-  switch (C) {
-    case 64: return Plan<64>::TM;
-    case 128: return Plan<128>::TM;
-    case 256: return Plan<256>::TM;
-    case 512: return Plan<512>::TM;
+#define BTS_CASE(CP) case CP: return Plan<CP, true>::TM;
+  switch (any_width_plan(C)) {
+    BTS_ANY_WIDTHS(BTS_CASE)
     default: return 0;
   }
+#undef BTS_CASE
 }
 
 // Whether the bfloat16 block kernel keeps the input tile of an (H, W) map in
@@ -423,13 +462,12 @@ extern "C" int btsbot_tile_rows(int C) {
 extern "C" int btsbot_block_tiles_input(int C, int H, int W) {
   using namespace btsbot::hopper;
   const Reach q = reach_of(H, W);
-  switch (C) {
-    case 64: return tiled_stages<64>(q.halo, q.taps) >= kMinStages;
-    case 128: return tiled_stages<128>(q.halo, q.taps) >= kMinStages;
-    case 256: return tiled_stages<256>(q.halo, q.taps) >= kMinStages;
-    case 512: return tiled_stages<512>(q.halo, q.taps) >= kMinStages;
+#define BTS_CASE(CP) case CP: return tiled_stages<Plan<CP, true>>(C, q.halo, q.taps) >= kMinStages;
+  switch (any_width_plan(C)) {
+    BTS_ANY_WIDTHS(BTS_CASE)
     default: return -1;
   }
+#undef BTS_CASE
 }
 
 // x and out (B, H, W, C) contiguous, weights in the module layouts, all of
@@ -443,7 +481,20 @@ extern "C" int btsbot_convnext_block(const void* x, const void* dw_w, const void
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return btsbot::hopper::dispatch_block_bf16(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2,
-                                               gamma, out, B, H, W, C, hidden, s);
+                                               gamma, out, B, H, W, C, hidden, false, s);
   return btsbot::dispatch_block(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma,
                                        out, B, H, W, C, hidden, s);
+}
+
+// As btsbot_convnext_block in bfloat16 only, at any C up to 1024 and any
+// hidden width, both multiples of 8 (the "wgmma_any" kernels).
+extern "C" int btsbot_convnext_block_wgmma(const void* x, const void* dw_w, const void* dw_b,
+                                           const void* ln_w, const void* ln_b, const void* w1,
+                                           const void* b1, const void* w2, const void* b2,
+                                           const void* gamma, void* out, int B, int H, int W,
+                                           int C, int hidden, int is_bf16, void* stream) {
+  if (!is_bf16) return cudaErrorInvalidValue;
+  return btsbot::hopper::dispatch_block_bf16(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma,
+                                             out, B, H, W, C, hidden, true,
+                                             static_cast<cudaStream_t>(stream));
 }

@@ -54,6 +54,39 @@
 // land one bf16 ulp away from the first version's.  tanhf costs 11-29 % of a
 // launch here (PERF.md): GELU sits between the two products of the same
 // warpgroup and nothing hides it.
+//
+// Every other width (Plan<CP, true>, the "wgmma_any" kernels): the same
+// design at a channel width padded to CP = 64 ceil(C / 64) inside the kernel
+// only; nothing is padded in device memory.  They replace the same TPU
+// kernels (pallas_mlp.py:fused_ln_mlp, pallas_convnext.py:
+// convnext_block_fused), which take any C and pad only rows and H, W.
+//   weights   the maps have the real extents, (hidden, C) and (C, hidden),
+//             so the part of a 64 x 64 box past them arrives as zeros
+//             (CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE); the mbarrier still counts
+//             the whole 8 KB box.  The last hidden chunk may be partial: its
+//             missing rows of W1 are zeros, b1 is read with a mask, so those
+//             hidden units are GELU(0) = 0.
+//   Xn        the channels past C are written as zeros, not left as they
+//             are: shared memory is not cleared between blocks, and a NaN
+//             bit pattern there times a zero weight is NaN.  The LayerNorm
+//             divides by the real C, and ln_w / ln_b, b1, b2, gamma are read
+//             with masks; stores are masked to the real C and rows.
+//   columns   the warpgroups' split follows CP: 1 warpgroup across the
+//             columns up to 256, 2 above, unevenly where CP / 64 is odd
+//             (320: 3 + 2 blocks of 64); the producer sends only the units
+//             of blocks that exist.
+//   CP > 512  (nano 640, tiny / small 768, base 1024: 1x1 maps, M = batch
+//             rows) the (64, CP) float accumulator does not fit a
+//             warpgroup's registers, so the output columns are split over
+//             SLICES blocks (blockIdx.y): each owns at most 8 blocks of 64
+//             columns and recomputes the first product over the full CP for
+//             them.  Each output column's sum over the hidden units is
+//             complete in one block, in a fixed order, rounded once; nothing
+//             crosses blocks.  These stages move more weight bytes than they
+//             compute (4-48 row tiles for 132 SMs), so what bounds them is
+//             the weight traffic through L2, which the split spreads over
+//             twice the blocks; the recomputed product costs tensor-core
+//             time that those stages have to spare.
 #pragma once
 
 #include <cuda.h>
@@ -77,31 +110,58 @@ constexpr int kSmemPerSm = 233472;  // bytes of one SM, 1 KB of each block reser
 constexpr int kBarrierBytes = (2 * kMaxStages + 1) * 8;
 constexpr int kAlignSlack = 1024;  // the ring and Xn start on a 1024-byte line
 
-template <int C> struct Plan {
-  static_assert(C % 64 == 0 && C <= 512, "width");
-  static constexpr int CS = C > 256 ? 2 : 1;  // warpgroups across the output columns
-  static constexpr int RW = 2 / CS;           // warpgroups across the rows
+constexpr int kMaxWidth = 1024;  // the widest C the bf16 kernels take
+
+// CP: the channel width as the kernel lays it out (a multiple of 64).  ANY:
+// the real width C <= CP and any hidden width that is a multiple of 8 come
+// at run time (the "wgmma_any" kernels); without it C = CP and hidden is a
+// multiple of 64 (the tuned kernels, C = 64 / 128 / 256 / 512), and every
+// mask below folds away at compile time.
+template <int CP_, bool ANY_ = false> struct Plan {
+  static constexpr int CP = CP_;
+  static constexpr bool ANY = ANY_;
+  static_assert(CP % 64 == 0 && CP <= kMaxWidth && (ANY || CP <= 512), "width");
+  static constexpr int KS = CP / 64;        // K slabs of the first product
+  static constexpr int SLICES = (KS + 7) / 8;            // blocks across the columns
+  static constexpr int SB = (KS + SLICES - 1) / SLICES;  // 64-column blocks of a slice
+  static constexpr int CS = SB > 4 ? 2 : 1;  // warpgroups across the output columns
+  static constexpr int RW = 2 / CS;          // warpgroups across the rows
   static constexpr int TM = 64 * RW;
-  static constexpr int NBW = C / 64 / CS;  // 64-column accumulator blocks a warpgroup
-  static constexpr int KS = C / 64;        // units per product and chunk (= NBW CS)
-  static constexpr int LPP = C / 8 < 32 ? C / 8 : 32;  // lanes that share one row
-  static constexpr int VEC = C / (8 * LPP);            // 8-channel vectors a lane
+  static constexpr int NBW = (SB + CS - 1) / CS;  // 64-column accumulator blocks a warpgroup
+  static constexpr int G8 = CP / 8;               // 16-byte groups of a padded row
+  static constexpr int LPP = G8 >= 32 ? 32 : (G8 >= 16 ? 16 : 8);  // lanes that share one row
+  static constexpr int VEC = (G8 + LPP - 1) / LPP;  // 8-channel vectors a lane
   static constexpr int GROUPS = kConsumerThreads / LPP;
-  static constexpr int ROW_BYTES = C * 2;
+  static constexpr int ROW_BYTES = CP * 2;
   static constexpr int XN_BYTES = TM * ROW_BYTES;
+  // the block kernel keeps the taps' weights in shared memory, except
+  // where CP > 512 leaves no room for all 49 of them beside Xn: there a
+  // tap's weights come from device memory (L2)
+  static constexpr bool TAPS_IN_SMEM = SLICES == 1;
   // C = 64 needs few registers (a 32-float accumulator), so there two
   // blocks share an SM and one's taps, GELU and epilogue hide under the
   // other's products.  Registers are handed out by the SM's four
   // sub-partitions, 16384 each, and the 9 (or 18) warps are dealt out over
   // them, so what a thread may hold follows from the fullest sub-partition:
   // 168 with one block, 96 with two.
-  static constexpr int BLOCKS_PER_SM = C == 64 ? 2 : 1;
+  static constexpr int BLOCKS_PER_SM = CP == 64 ? 2 : 1;
   static constexpr int SMEM_LIMIT =
       BLOCKS_PER_SM == 1 ? kSmemLimit : kSmemPerSm / BLOCKS_PER_SM - 1024;
   static constexpr int MAX_REGS =
       16384 / ((kBlockThreads / 32 * BLOCKS_PER_SM + 3) / 4 * 32) / 8 * 8;
   static_assert(TM % GROUPS == 0, "row groups");
 };
+
+// The padded widths the "wgmma_any" kernels are built for: every multiple of
+// 64 up to 512, then the ConvNeXt widths above it.  A width C runs the
+// smallest one >= C.
+#define BTS_ANY_WIDTHS(X) \
+  X(64) X(128) X(192) X(256) X(320) X(384) X(448) X(512) X(640) X(768) X(1024)
+inline int any_width_plan(int c) {
+  if (c <= 0 || c % 8 != 0 || c > kMaxWidth) return 0;
+  if (c <= 512) return (c + 63) / 64 * 64;
+  return c <= 640 ? 640 : (c <= 768 ? 768 : 1024);
+}
 
 // Shared memory of one block, in bytes from a 1024-byte line:
 //   [ring: stages x 8 KB][Xn][extra: the block kernel's input tile and its
@@ -264,45 +324,69 @@ template <int LANES> __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-// LayerNorm of row r of the tile, whose C values lie across LPP lanes (lane
-// l of the group holds channels 8 (vv LPP + l) .. + 8 in v[vv]); the result
-// goes to Xn as bf16 in the swizzled slab layout.  lw / lb are this lane's
-// LN scale and shift, packed.
-template <int C>
-__device__ __forceinline__ void layer_norm_to_xn(const float (&v)[Plan<C>::VEC][8],
-                                                 const uint4 (&lw)[Plan<C>::VEC],
-                                                 const uint4 (&lb)[Plan<C>::VEC],
-                                                 unsigned char* xn, int r, int l) {
-  using P = Plan<C>;
+// Whether 8-channel vector vv of lane l holds real channels (< c) of a row.
+template <class P> __device__ __forceinline__ bool real_vec(int vv, int l, int c) {
+  return !P::ANY || (vv * P::LPP + l) * 8 < c;
+}
+
+// LayerNorm of row r of the tile, whose c values lie across LPP lanes (lane
+// l of the group holds channels 8 (vv LPP + l) .. + 8 in v[vv]; vectors past
+// c hold zeros); the result goes to Xn as bf16 in the swizzled slab layout,
+// and the padded channels c .. CP as zeros.  lw / lb are this lane's LN
+// scale and shift, packed.  Mean and variance are over the c real channels.
+template <class P>
+__device__ __forceinline__ void layer_norm_to_xn(const float (&v)[P::VEC][8],
+                                                 const uint4 (&lw)[P::VEC],
+                                                 const uint4 (&lb)[P::VEC],
+                                                 unsigned char* xn, int r, int l, int c) {
   float s = 0.f;
 #pragma unroll
   for (int vv = 0; vv < P::VEC; ++vv)
 #pragma unroll
     for (int e = 0; e < 8; ++e) s += v[vv][e];
-  const float mu = group_sum<P::LPP>(s) * (1.0f / C);
+  const float inv_c = 1.0f / c;
+  const float mu = group_sum<P::LPP>(s) * inv_c;
   float ss = 0.f;
 #pragma unroll
-  for (int vv = 0; vv < P::VEC; ++vv)
+  for (int vv = 0; vv < P::VEC; ++vv) {
+    if (!real_vec<P>(vv, l, c)) continue;
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       const float d = v[vv][e] - mu;
       ss += d * d;
     }
-  const float rstd = rsqrtf(group_sum<P::LPP>(ss) * (1.0f / C) + kLnEps);
+  }
+  const float rstd = rsqrtf(group_sum<P::LPP>(ss) * inv_c + kLnEps);
 #pragma unroll
   for (int vv = 0; vv < P::VEC; ++vv) {
-    float w[8], b[8], o[8];
-    unpack8(lw[vv], w);
-    unpack8(lb[vv], b);
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      o[e] = rb(rb(rb((v[vv][e] - mu) * rstd) * w[e]) + b[e]);
-    uint4 q;
-    q.x = pack2(o[0], o[1]), q.y = pack2(o[2], o[3]);
-    q.z = pack2(o[4], o[5]), q.w = pack2(o[6], o[7]);
     const int cg = vv * P::LPP + l;  // 16-byte group along the row
+    if (P::ANY && cg >= P::G8) continue;  // past the padded row
+    uint4 q = make_uint4(0u, 0u, 0u, 0u);  // padded channels: zeros
+    if (real_vec<P>(vv, l, c)) {
+      float w[8], b[8], o[8];
+      unpack8(lw[vv], w);
+      unpack8(lb[vv], b);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        o[e] = rb(rb(rb((v[vv][e] - mu) * rstd) * w[e]) + b[e]);
+      q.x = pack2(o[0], o[1]), q.y = pack2(o[2], o[3]);
+      q.z = pack2(o[4], o[5]), q.w = pack2(o[6], o[7]);
+    }
     const int slab = cg >> 3, g = cg & 7;
     *reinterpret_cast<uint4*>(xn + slab * (P::TM * 128) + r * 128 + ((g ^ (r & 7)) << 4)) = q;
+  }
+}
+
+// This lane's LN scale and shift (and for the block kernel its depthwise
+// bias): 16 bytes a vector, zeros past c.
+template <class P>
+__device__ __forceinline__ void load_row_params(const bf16* __restrict__ p, uint4 (&q)[P::VEC],
+                                                int l, int c) {
+#pragma unroll
+  for (int vv = 0; vv < P::VEC; ++vv) {
+    q[vv] = make_uint4(0u, 0u, 0u, 0u);
+    if (real_vec<P>(vv, l, c))
+      q[vv] = *reinterpret_cast<const uint4*>(p + (vv * P::LPP + l) * 8);
   }
 }
 
@@ -340,43 +424,64 @@ __device__ __forceinline__ void init_barriers(uint32_t full, uint32_t empty, uin
   __syncthreads();
 }
 
-// The i-th fc2 unit of a chunk holds this 64-column block of the output.
-// With the columns split over the warpgroups (C = 512) the units alternate
-// between the two, so that both start their k-th product at the same step.
-template <int C> __device__ __forceinline__ int w2_block(int i) {
-  return (i % Plan<C>::CS) * Plan<C>::NBW + i / Plan<C>::CS;
-}
+// The 64-column blocks of the output that this block owns, [blk0, blk0 +
+// nb): all of them, or with the columns split over blocks (CP > 512) the
+// slice blockIdx.y.  Warpgroup cs owns blocks cs NBW .. cs NBW + NBW of it,
+// those that exist.
+template <class P> struct Slice {
+  int blk0, nb;
+  __device__ __forceinline__ static Slice of_block() {
+    if (P::SLICES == 1) return Slice{0, P::KS};
+    const int b0 = static_cast<int>(blockIdx.y) * P::SB;
+    return Slice{b0, P::KS - b0 < P::SB ? P::KS - b0 : P::SB};
+  }
+  __device__ __forceinline__ bool has(int cs, int k) const {
+    return (P::SLICES == 1 && P::NBW * P::CS == P::KS) || cs * P::NBW + k < nb;
+  }
+};
 
 // The producer thread: every unit of every chunk, in the order the
-// consumers take them.
-template <int C>
+// consumers take them.  A chunk is KS units of fc1 (the K slabs), then one
+// fc2 unit for each accumulator block; with the columns split over the
+// warpgroups the units alternate between the two, so that both start
+// their k-th product at the same step.
+template <class P>
 __device__ __forceinline__ void produce_weights(Ring ring, const CUtensorMap* map1,
-                                                const CUtensorMap* map2, int hidden) {
+                                                const CUtensorMap* map2, int hidden,
+                                                Slice<P> sl) {
   ring.slot = 0;
   ring.phase = 1;  // a fresh barrier lets a wait on the other parity through
   for (int j0 = 0; j0 < hidden; j0 += 64) {
-    for (int u = 0; u < 2 * Plan<C>::KS; ++u) {
+    for (int u = 0; u < P::KS + P::NBW * P::CS; ++u) {
+      int blk = 0;
+      if (u >= P::KS) {
+        const int i = u - P::KS, k = i / P::CS, cs = i % P::CS;
+        if (!sl.has(cs, k)) continue;
+        blk = sl.blk0 + cs * P::NBW + k;
+      }
       mbar_wait(ring.empty_bar(ring.slot), ring.phase);
       mbar_expect_tx(ring.full_bar(), kUnitBytes);
-      if (u < Plan<C>::KS)
+      if (u < P::KS)
         tma_load_2d(ring.tile(), map1, ring.full_bar(), u * 64, j0);
       else
-        tma_load_2d(ring.tile(), map2, ring.full_bar(), j0, w2_block<C>(u - Plan<C>::KS) * 64);
+        tma_load_2d(ring.tile(), map2, ring.full_bar(), j0, blk * 64);
       ring.advance();
     }
   }
 }
 
 // The consumers, once Xn is complete and visible to the asynchronous proxy:
-// both products over all chunks, then the epilogue.  `shortcut(r, col)`
-// gives the two bf16 shortcut values of tile row r at columns col, col + 1.
-template <int C, typename Shortcut>
+// both products over all chunks, then the epilogue, for the output columns
+// of slice `sl` and the c real channels (rows of width c in device memory).
+// `shortcut(r, col)` gives the two bf16 shortcut values of tile row r at
+// columns col, col + 1.
+template <class P, typename Shortcut>
 __device__ __forceinline__ void consume_mlp(Ring ring, uint32_t xn, const bf16* __restrict__ b1,
                                             const bf16* __restrict__ b2,
                                             const bf16* __restrict__ gamma,
                                             bf16* __restrict__ out, long long row0,
-                                            long long M, int hidden, Shortcut shortcut) {
-  using P = Plan<C>;
+                                            long long M, int hidden, int c, Slice<P> sl,
+                                            Shortcut shortcut) {
   const int wg = threadIdx.x >> 7;
   const int rg = P::CS == 1 ? wg : 0;  // which 64 rows
   const int cs = P::CS == 1 ? 0 : wg;  // which share of the columns
@@ -398,8 +503,11 @@ __device__ __forceinline__ void consume_mlp(Ring ring, uint32_t xn, const bf16* 
     // ---- H = Xn . W1[j0 .. j0+64]^T, one unit per 64 input channels
     uint32_t bias1[8];  // asked for ahead of the product that hides their latency
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-      bias1[i] = __ldg(reinterpret_cast<const uint32_t*>(b1 + j0 + 8 * i + t2));
+    for (int i = 0; i < 8; ++i) {
+      const int j = j0 + 8 * i + t2;
+      bias1[i] = 0u;  // hidden units past the last: zero bias, zero weights
+      if (!P::ANY || j < hidden) bias1[i] = __ldg(reinterpret_cast<const uint32_t*>(b1 + j));
+    }
     float h[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) h[i] = 0.f;
@@ -439,7 +547,7 @@ __device__ __forceinline__ void consume_mlp(Ring ring, uint32_t xn, const bf16* 
       a[i >> 1][(i & 1) * 2 + 1] = pack2(g2, g3);
     }
 
-    // ---- acc[nb] += G . W2[64 nb .. 64 nb + 64, j0 .. j0+64]^T
+    // ---- acc[k] += G . W2[64-column block of acc[k], j0 .. j0+64]^T
 #pragma unroll
     for (int nb = 0; nb < P::NBW; ++nb) fence_regs(acc[nb]);
     wgmma_fence();
@@ -447,14 +555,20 @@ __device__ __forceinline__ void consume_mlp(Ring ring, uint32_t xn, const bf16* 
     bool holding = false;
 #pragma unroll
     for (int k = 0; k < P::NBW; ++k) {
-      // one unit for each warpgroup across the columns; this one takes its own
+      // one unit for each warpgroup across the columns that has a k-th
+      // block; this one takes its own.  A warpgroup without a k-th block
+      // (uneven splits) multiplies the other's unit into an accumulator it
+      // never stores: a product under a branch would serialise every wgmma
+      // of the kernel (ptxas C7520).
       int slots[P::CS];
       uint32_t mine = 0;
 #pragma unroll
-      for (int c = 0; c < P::CS; ++c) {
+      for (int c2 = 0; c2 < P::CS; ++c2) {
+        slots[c2] = -1;
+        if (!sl.has(c2, k)) continue;
         mbar_wait(ring.full_bar(), ring.phase);
-        slots[c] = ring.slot;
-        mine = c == cs ? ring.tile() : mine;
+        slots[c2] = ring.slot;
+        mine = c2 == cs || !sl.has(cs, k) ? ring.tile() : mine;
         ring.advance();
       }
       const uint64_t db = wgmma_desc(mine);
@@ -464,17 +578,17 @@ __device__ __forceinline__ void consume_mlp(Ring ring, uint32_t xn, const bf16* 
       if (holding) {
         wgmma_wait<1>();
 #pragma unroll
-        for (int c = 0; c < P::CS; ++c)
-          if (lane == 0) mbar_arrive(ring.empty_bar(held2[c]));
+        for (int c2 = 0; c2 < P::CS; ++c2)
+          if (lane == 0 && (!P::ANY || held2[c2] >= 0)) mbar_arrive(ring.empty_bar(held2[c2]));
       }
 #pragma unroll
-      for (int c = 0; c < P::CS; ++c) held2[c] = slots[c];
+      for (int c2 = 0; c2 < P::CS; ++c2) held2[c2] = slots[c2];
       holding = true;
     }
     wgmma_wait<0>();
 #pragma unroll
-    for (int c = 0; c < P::CS; ++c)
-      if (lane == 0) mbar_arrive(ring.empty_bar(held2[c]));
+    for (int c2 = 0; c2 < P::CS; ++c2)
+      if (lane == 0 && (!P::ANY || held2[c2] >= 0)) mbar_arrive(ring.empty_bar(held2[c2]));
 #pragma unroll
     for (int nb = 0; nb < P::NBW; ++nb) fence_regs(acc[nb]);
   }
@@ -482,9 +596,11 @@ __device__ __forceinline__ void consume_mlp(Ring ring, uint32_t xn, const bf16* 
   // ---- epilogue: + b2, * gamma, + shortcut
 #pragma unroll
   for (int nb = 0; nb < P::NBW; ++nb) {
+    if (P::ANY && !sl.has(cs, nb)) continue;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const int col = cs * (P::NBW * 64) + nb * 64 + 8 * i + t2;
+      const int col = (sl.blk0 + cs * P::NBW + nb) * 64 + 8 * i + t2;
+      if (P::ANY && col >= c) continue;  // padded columns: zeros, never stored
       const uint32_t b2p = __ldg(reinterpret_cast<const uint32_t*>(b2 + col));
       const uint32_t gp = __ldg(reinterpret_cast<const uint32_t*>(gamma + col));
 #pragma unroll
@@ -495,7 +611,7 @@ __device__ __forceinline__ void consume_mlp(Ring ring, uint32_t xn, const bf16* 
         const float y0 = rb(rb(acc[nb][4 * i + 2 * half]) + lo_f(b2p));
         const float y1 = rb(rb(acc[nb][4 * i + 2 * half + 1]) + hi_f(b2p));
         const float z0 = rb(y0 * lo_f(gp)), z1 = rb(y1 * hi_f(gp));
-        *reinterpret_cast<uint32_t*>(out + (row0 + r) * C + col) =
+        *reinterpret_cast<uint32_t*>(out + (row0 + r) * c + col) =
             pack2(lo_f(sp) + z0, hi_f(sp) + z1);
       }
     }

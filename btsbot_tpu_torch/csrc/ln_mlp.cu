@@ -23,9 +23,13 @@
 // runs on the CUDA cores between the two products of a warpgroup, and the
 // grid is not persistent.  PERF.md has the times.
 //
+// Every other width in bfloat16 runs the same kernel with the channels
+// padded inside it (ln_mlp_bf16_kernel<CP, true>, btsbot_ln_mlp_wgmma; the
+// design notes are hopper_mlp.cuh's).
+//
 // float32 keeps exact float FMAs on the CUDA cores (the 1e-5 contract
 // forbids TF32): ln_mlp_kernel below with block_common.cuh's mlp_tile,
-// ceiling 67 TFLOP/s.
+// ceiling 67 TFLOP/s; any_width.cu at every other width.
 
 #include "block_common.cuh"
 #include "hopper_mlp.cuh"
@@ -109,15 +113,19 @@ struct GlobalShortcut {
   }
 };
 
-template <int C>
-__global__ void __maxnreg__(Plan<C>::MAX_REGS)
+// C = CP (tuned) or the real width c <= CP (ANY), rows of width c in
+// device memory.
+template <int CP, bool ANY>
+__global__ void __maxnreg__((Plan<CP, ANY>::MAX_REGS))
     ln_mlp_bf16_kernel(const __grid_constant__ CUtensorMap map1,
                        const __grid_constant__ CUtensorMap map2, const bf16* __restrict__ h,
                        const bf16* __restrict__ res, const bf16* __restrict__ ln_w,
                        const bf16* __restrict__ ln_b, const bf16* __restrict__ b1,
                        const bf16* __restrict__ b2, const bf16* __restrict__ gamma,
-                       bf16* __restrict__ out, long long M, int hidden, int stages) {
-  using P = Plan<C>;
+                       bf16* __restrict__ out, long long M, int hidden, int stages,
+                       int c_real) {
+  using P = Plan<CP, ANY>;
+  const int c = ANY ? c_real : CP;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -130,92 +138,104 @@ __global__ void __maxnreg__(Plan<C>::MAX_REGS)
   ring.stages = stages;
   init_barriers(ring.full, ring.empty, ring.empty + 8 * kMaxStages, stages);
   const long long row0 = static_cast<long long>(blockIdx.x) * P::TM;
+  const Slice<P> sl = Slice<P>::of_block();
 
   if (threadIdx.x >= kConsumerThreads) {
-    if (threadIdx.x == kConsumerThreads) produce_weights<C>(ring, &map1, &map2, hidden);
+    if (threadIdx.x == kConsumerThreads) produce_weights<P>(ring, &map1, &map2, hidden, sl);
   } else {
     const int grp = threadIdx.x / P::LPP, l = threadIdx.x % P::LPP;
     uint4 lw[P::VEC], lb[P::VEC];
-#pragma unroll
-    for (int vv = 0; vv < P::VEC; ++vv) {
-      lw[vv] = *reinterpret_cast<const uint4*>(ln_w + (vv * P::LPP + l) * 8);
-      lb[vv] = *reinterpret_cast<const uint4*>(ln_b + (vv * P::LPP + l) * 8);
-    }
-    // this lane's share of its rows, all loads in flight together
+    load_row_params<P>(ln_w, lw, l, c);
+    load_row_params<P>(ln_b, lb, l, c);
+    // this lane's share of its rows, LR rows' loads in flight together
     constexpr int kRows = P::TM / P::GROUPS;
-    uint4 hq[kRows][P::VEC];
+    constexpr int LR = P::VEC <= 2 ? kRows : 4;  // wide rows: fewer at once
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
+    for (int i0 = 0; i0 < kRows; i0 += LR) {
+      uint4 hq[LR][P::VEC];
 #pragma unroll
-      for (int vv = 0; vv < P::VEC; ++vv) {
-        const long long row = row0 + grp + i * P::GROUPS;
-        hq[i][vv] = make_uint4(0u, 0u, 0u, 0u);  // rows past M: zeros, never stored
-        if (row < M)
-          hq[i][vv] = *reinterpret_cast<const uint4*>(h + row * C + (vv * P::LPP + l) * 8);
+      for (int i = 0; i < LR; ++i)
+#pragma unroll
+        for (int vv = 0; vv < P::VEC; ++vv) {
+          const long long row = row0 + grp + (i0 + i) * P::GROUPS;
+          hq[i][vv] = make_uint4(0u, 0u, 0u, 0u);  // rows past M: zeros, never stored
+          if (row < M && real_vec<P>(vv, l, c))
+            hq[i][vv] = *reinterpret_cast<const uint4*>(h + row * c + (vv * P::LPP + l) * 8);
+        }
+#pragma unroll
+      for (int i = 0; i < LR; ++i) {
+        float v[P::VEC][8];
+#pragma unroll
+        for (int vv = 0; vv < P::VEC; ++vv) unpack8(hq[i][vv], v[vv]);
+        layer_norm_to_xn<P>(v, lw, lb, xn, grp + (i0 + i) * P::GROUPS, l, c);
       }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      float v[P::VEC][8];
-#pragma unroll
-      for (int vv = 0; vv < P::VEC; ++vv) unpack8(hq[i][vv], v[vv]);
-      layer_norm_to_xn<C>(v, lw, lb, xn, grp + i * P::GROUPS, l);
     }
     fence_proxy_async();  // Xn was written by ordinary stores, wgmma reads it
     consumer_barrier();
-    consume_mlp<C>(ring, smem_u32(xn), b1, b2, gamma, out, row0, M, hidden,
-                   GlobalShortcut{res, row0, C});
+    consume_mlp<P>(ring, smem_u32(xn), b1, b2, gamma, out, row0, M, hidden, c, sl,
+                   GlobalShortcut{res, row0, c});
   }
 }
 
-template <int C>
+template <int CP, bool ANY>
 static cudaError_t launch_ln_mlp_bf16(const void* h, const void* res, const void* ln_w,
                                       const void* ln_b, const void* w1, const void* b1,
                                       const void* w2, const void* b2, const void* gamma,
-                                      void* out, long long M, int hidden,
+                                      void* out, long long M, int c, int hidden,
                                       cudaStream_t stream) {
-  using P = Plan<C>;
+  using P = Plan<CP, ANY>;
   constexpr int kStages = stages_that_fit(P::SMEM_LIMIT, P::XN_BYTES, 0);
   static_assert(kStages >= kMinStages, "tile exceeds the shared memory of a block");
   constexpr int kBytes = smem_bytes(kStages, P::XN_BYTES, 0);
   if (M <= 0) return cudaSuccess;
-  if (hidden <= 0 || hidden % 64 != 0) return cudaErrorInvalidValue;
+  if (hidden <= 0 || hidden % (ANY ? 8 : 64) != 0) return cudaErrorInvalidValue;
   for (const void* p : {h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, static_cast<const void*>(out)})
     if (!aligned16(p)) return cudaErrorMisalignedAddress;
   const long long blocks = (M + P::TM - 1) / P::TM;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   CUtensorMap map1, map2;
-  cudaError_t err = weight_map(&map1, w1, hidden, C);
+  cudaError_t err = weight_map(&map1, w1, hidden, c);
   if (err != cudaSuccess) return err;
-  err = weight_map(&map2, w2, C, hidden);
+  err = weight_map(&map2, w2, c, hidden);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(ln_mlp_bf16_kernel<C>,
+  err = cudaFuncSetAttribute(ln_mlp_bf16_kernel<CP, ANY>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
   if (err != cudaSuccess) return err;
-  ln_mlp_bf16_kernel<C><<<static_cast<unsigned>(blocks), kBlockThreads, kBytes, stream>>>(
+  const dim3 grid(static_cast<unsigned>(blocks), P::SLICES);
+  ln_mlp_bf16_kernel<CP, ANY><<<grid, kBlockThreads, kBytes, stream>>>(
       map1, map2, static_cast<const bf16*>(h), static_cast<const bf16*>(res),
       static_cast<const bf16*>(ln_w), static_cast<const bf16*>(ln_b),
       static_cast<const bf16*>(b1), static_cast<const bf16*>(b2),
-      static_cast<const bf16*>(gamma), static_cast<bf16*>(out), M, hidden, kStages);
+      static_cast<const bf16*>(gamma), static_cast<bf16*>(out), M, hidden, kStages, c);
   return cudaGetLastError();
 }
 
+// The tuned kernels (C = 64 / 128 / 256 / 512, hidden in 64-unit steps), or
+// with `any` the padded ones at every C up to kMaxWidth.
 static cudaError_t dispatch_ln_mlp_bf16(const void* h, const void* res, const void* ln_w,
                                         const void* ln_b, const void* w1, const void* b1,
                                         const void* w2, const void* b2, const void* gamma,
-                                        void* out, long long M, int C, int hidden,
+                                        void* out, long long M, int C, int hidden, bool any,
                                         cudaStream_t stream) {
-  switch (C) {
-    case 64:
-      return launch_ln_mlp_bf16<64>(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, hidden, stream);
-    case 128:
-      return launch_ln_mlp_bf16<128>(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, hidden, stream);
-    case 256:
-      return launch_ln_mlp_bf16<256>(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, hidden, stream);
-    case 512:
-      return launch_ln_mlp_bf16<512>(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, hidden, stream);
-    default:
-      return cudaErrorInvalidValue;
+#define BTS_LAUNCH(CP, ANY)                                                                \
+  return launch_ln_mlp_bf16<CP, ANY>(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, C, \
+                                     hidden, stream);
+  if (!any) {
+    switch (C) {
+      case 64: BTS_LAUNCH(64, false)
+      case 128: BTS_LAUNCH(128, false)
+      case 256: BTS_LAUNCH(256, false)
+      case 512: BTS_LAUNCH(512, false)
+      default: return cudaErrorInvalidValue;
+    }
   }
+#define BTS_CASE(CP) case CP: BTS_LAUNCH(CP, true)
+  switch (any_width_plan(C)) {
+    BTS_ANY_WIDTHS(BTS_CASE)
+    default: return cudaErrorInvalidValue;
+  }
+#undef BTS_CASE
+#undef BTS_LAUNCH
 }
 
 }  // namespace hopper
@@ -233,7 +253,20 @@ extern "C" int btsbot_ln_mlp(const void* h, const void* res, const void* ln_w,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return btsbot::hopper::dispatch_ln_mlp_bf16(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma,
-                                                out, M, C, hidden, s);
+                                                out, M, C, hidden, false, s);
   return btsbot::dispatch_ln_mlp(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out,
                                         M, C, hidden, s);
+}
+
+// As btsbot_ln_mlp in bfloat16 only, at any C up to 1024 and any hidden
+// width, both multiples of 8 (the "wgmma_any" kernels).
+extern "C" int btsbot_ln_mlp_wgmma(const void* h, const void* res, const void* ln_w,
+                                   const void* ln_b, const void* w1, const void* b1,
+                                   const void* w2, const void* b2, const void* gamma,
+                                   void* out, long long M, int C, int hidden, int is_bf16,
+                                   void* stream) {
+  if (!is_bf16) return cudaErrorInvalidValue;
+  return btsbot::hopper::dispatch_ln_mlp_bf16(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out,
+                                              M, C, hidden, true,
+                                              static_cast<cudaStream_t>(stream));
 }

@@ -45,14 +45,19 @@ _SIGNATURES = {
     # x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, out, B, H, W, C,
     # hidden, is_bf16, stream
     "btsbot_convnext_block": [_P] * 11 + [ctypes.c_int] * 6 + [_P],
-    # the same two functions at any width (csrc/any_width.cu)
+    # the same two functions at any width: float32 (csrc/any_width.cu) and
+    # bfloat16 on the tensor cores (convnext_block.cu, ln_mlp.cu)
     "btsbot_ln_mlp_any": [_P] * 10 + [ctypes.c_longlong, ctypes.c_int,
                                       ctypes.c_int, ctypes.c_int, _P],
     "btsbot_convnext_block_any": [_P] * 11 + [ctypes.c_int] * 6 + [_P],
-    # M, C, hidden -> rows of the flattened index a block of the any-width
-    # kernels takes (0: widths they do not take)
+    "btsbot_ln_mlp_wgmma": [_P] * 10 + [ctypes.c_longlong, ctypes.c_int,
+                                        ctypes.c_int, ctypes.c_int, _P],
+    "btsbot_convnext_block_wgmma": [_P] * 11 + [ctypes.c_int] * 6 + [_P],
+    # M, C, hidden -> rows of the flattened index a block of the float32
+    # any-width kernels takes (0: widths they do not take)
     "btsbot_any_width_rows": [ctypes.c_longlong, ctypes.c_int, ctypes.c_int],
     # C -> rows of the flattened index a block of the bf16 kernels takes
+    # (tuned or wgmma_any; 0: a width they do not take)
     "btsbot_tile_rows": [ctypes.c_int],
     # C, H, W -> 1 if the bf16 block kernel keeps the input tile of such a
     # map in shared memory, 0 if it reads x from device memory
@@ -178,33 +183,45 @@ def check(err: int, name: str) -> None:
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Widths the tuned kernels take (csrc/convnext_block.cu, csrc/ln_mlp.cu: bf16
 # in units of 64 channels and 64 hidden units, float32 in tiles specialised
-# per C); every other width runs csrc/any_width.cu.
+# per C).  Every other width runs, in float32, csrc/any_width.cu (float
+# FMAs) and, in bfloat16, the same tensor-core design padded inside the
+# kernel to a multiple of 64 channels, up to WGMMA_MAX_WIDTH.
 TUNED_WIDTHS = (64, 128, 256, 512)
+WGMMA_MAX_WIDTH = 1024
 # C entry point of each function and kernel variant
 ENTRY_POINTS = {
     "convnext_block": {"tuned": "btsbot_convnext_block",
-                       "any_width": "btsbot_convnext_block_any"},
-    "ln_mlp": {"tuned": "btsbot_ln_mlp", "any_width": "btsbot_ln_mlp_any"},
+                       "any_width": "btsbot_convnext_block_any",
+                       "wgmma_any": "btsbot_convnext_block_wgmma"},
+    "ln_mlp": {"tuned": "btsbot_ln_mlp", "any_width": "btsbot_ln_mlp_any",
+               "wgmma_any": "btsbot_ln_mlp_wgmma"},
 }
-
-
-def kernel_variant(c: int, hidden: int) -> str:
-    """The kernel that takes a block of width ``c`` with ``hidden`` MLP units,
-    chosen by width: "tuned" for C in TUNED_WIDTHS at a hidden width that is a
-    multiple of 64 (every ``k * C`` there), "any_width" for every other C and
-    hidden that are multiples of 8 (every ConvNeXt size's widths and their
-    ``.r<k>`` hidden widths).  Raises on widths neither takes."""
+def kernel_variant(c: int, hidden: int, dtype: torch.dtype) -> str:
+    """The kernel that takes a block of width ``c`` with ``hidden`` MLP units
+    in ``dtype``: "tuned" for C in TUNED_WIDTHS at a hidden width that is a
+    multiple of 64 (every ``k * C`` there), in both types; at every other C
+    and hidden that are multiples of 8 (every ConvNeXt size's widths and
+    their ``.r<k>`` hidden widths) "any_width" in float32 and "wgmma_any" in
+    bfloat16 (C up to WGMMA_MAX_WIDTH).  Raises on what none takes."""
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"the kernels take float32 or bfloat16, got {dtype}")
     if c <= 0 or hidden <= 0 or c % 8 or hidden % 8:
         raise ValueError(f"the kernels take C and hidden widths that are positive "
                          f"multiples of 8, got C={c}, hidden={hidden}")
-    return "tuned" if c in TUNED_WIDTHS and hidden % 64 == 0 else "any_width"
+    if c in TUNED_WIDTHS and hidden % 64 == 0:
+        return "tuned"
+    if dtype == torch.float32:
+        return "any_width"
+    if c > WGMMA_MAX_WIDTH:
+        raise ValueError(f"the bfloat16 kernels take C up to {WGMMA_MAX_WIDTH}, got C={c}")
+    return "wgmma_any"
 
 
-def count_launch(wrapper, c: int, hidden: int) -> None:
-    """One launch of ``wrapper``'s kernel at widths (c, hidden): its total
-    ``launches`` and its ``launches_by_width[(c, hidden)]``."""
+def count_launch(wrapper, variant: str, c: int, hidden: int) -> None:
+    """One launch of ``wrapper``'s kernel ``variant`` at widths (c, hidden):
+    its total ``launches`` and its ``launches_by_width[(variant, c, hidden)]``."""
     wrapper.launches += 1
-    key = (c, hidden)
+    key = (variant, c, hidden)
     wrapper.launches_by_width[key] = wrapper.launches_by_width.get(key, 0) + 1
 
 

@@ -7,8 +7,9 @@ Port of btsbot_tpu/ops/pallas_mlp.py.  Three things live here:
   the storage type after the normalisation and after each product, biases,
   γ and the residual added in the storage type;
 * ``fused_ln_mlp`` — the wrapper of the CUDA kernels ``csrc/ln_mlp.cu`` (C =
-  64 / 128 / 256 / 512) and ``csrc/any_width.cu`` (every other width,
-  ``_build.kernel_variant``).  On a CUDA tensor it launches one of them
+  64 / 128 / 256 / 512; at every other width its bfloat16 "wgmma_any"
+  kernels) and ``csrc/any_width.cu`` (float32 at every other width;
+  ``_build.kernel_variant``, by width and type).  On a CUDA tensor it launches one of them
   (and counts the launch in ``fused_ln_mlp.launches`` and
   ``.launches_by_width``) or raises; only a CPU tensor takes the plain
   version.  Its backward recomputes the plain version, as the JAX custom VJP
@@ -63,16 +64,16 @@ def _launch_ln_mlp(h, shortcut, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, gamma):
     if fc1_w.shape != (hidden, c) or fc2_w.shape != (c, hidden):
         raise ValueError(f"fused_ln_mlp: fc1 {tuple(fc1_w.shape)} / fc2 "
                          f"{tuple(fc2_w.shape)} do not fit C={c}")
-    variant = _build.kernel_variant(c, hidden)
     ops = _build.kernel_operands(
         h, (shortcut.contiguous(), ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, gamma),
         "fused_ln_mlp")
+    variant = _build.kernel_variant(c, hidden, h.dtype)
     out = torch.empty_like(ops[0])
     launch = getattr(_build.library(), _build.ENTRY_POINTS["ln_mlp"][variant])
     err = launch(*[t.data_ptr() for t in ops], out.data_ptr(), m, c, hidden,
                  _build.KERNEL_DTYPES[h.dtype], _build.current_stream(h))
     _build.check(err, f"fused_ln_mlp ({variant}, C={c}, hidden={hidden})")
-    _build.count_launch(fused_ln_mlp, c, hidden)
+    _build.count_launch(fused_ln_mlp, variant, c, hidden)
     return out
 
 
@@ -99,7 +100,7 @@ def fused_ln_mlp(h, shortcut, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, gamma):
 
 
 fused_ln_mlp.launches = 0
-fused_ln_mlp.launches_by_width = {}  # (C, hidden) -> launches
+fused_ln_mlp.launches_by_width = {}  # (variant, C, hidden) -> launches
 
 
 # --------------------- fast ConvNeXt forward (serving) ---------------------

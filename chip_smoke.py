@@ -83,14 +83,24 @@ convnext_pico, 63×63×3 triplets + 25 metadata features) on the card:
 10. widths: both kernels against their plain versions at the four stage
     shapes of convnext atto, femto, nano, tiny, small and base at batch 256
     (f32 rtol 1e-4 / atol 1e-5, bf16 3e-2; ``fused_ln_mlp`` at hidden 4C,
-    2C and 3C; a ragged batch and row count), C = 64 / 128 / 256 / 512 in
-    the tuned kernels and every other width in ``csrc/any_width.cu``; one
-    f32 forward of mm_ConvNeXt at each size at batch 64 against the plain
-    model (scores 1e-5, logits rtol 1e-4 / atol 1e-5; launches = the sum
-    of the depths), a train step kernel vs plain at atto and base (loss
-    rtol 1e-6, gradients 1e-4 of their largest entry), and
+    2C and 3C; a ragged batch and row count), and at nano's at batch 3072
+    (hidden 4C) with times, the plain version's and the bound: C = 64 /
+    128 / 256 / 512 in the tuned kernels, every other width in bf16 in the
+    padded tensor-core kernels ("wgmma_any") and in f32 in
+    ``csrc/any_width.cu``; the bf16 wgmma_any kernels at ``ODD_SHAPES``
+    (C = 640 at 7x7, 520, 1000, maps too wide for the input tile); one f32
+    forward of mm_ConvNeXt at each size at batch 64 against the plain
+    model (scores 1e-5, logits rtol 1e-4 / atol 1e-5; launches = the sum of
+    the depths), a train step kernel vs plain at atto and base (loss rtol
+    1e-6, gradients 1e-4 of their largest entry), and
     ``inceptionnext_atto`` / ``inceptionnext_base`` forwards;
-11. daemon: ``cli.serve`` in-process on phase 6's flagship run at batch
+11. nano: mm_ConvNeXt from a config without ``model_kind`` (the JAX
+    package's default ``convnext_nano.d1h_in1k``, 80 / 160 / 320 / 640)
+    under both scorers at batch 3072 on 3,572 alerts: 14 block launches a
+    batch, f32 within 1e-5 of the plain model, bf16 within 0.01 of f32,
+    alerts/s on device-resident inputs, and the bf16 forward split into its
+    14 block launches and everything else;
+12. daemon: ``cli.serve`` in-process on phase 6's flagship run at batch
     3072: ``--synthetic 20000`` (every candid once, 12 block launches a
     batch, alerts/s and latency p50 / p99), ``--avro`` over an 8,192-packet
     ``synthetic_avro_ocf`` archive with 9 corrupt stamps with and without
@@ -98,15 +108,16 @@ convnext_pico, 63×63×3 triplets + 25 metadata features) on the card:
     bf16 transfer within 0.01 of f32), a bursty trickle (2,000 alerts
     every second for 5 s, max wait 100 ms) whose p99 latency stays under
     the gap between bursts (the idle drain), ``stop()`` mid-stream;
-12. val: ``cli.val --calibrate`` on that run's val split writes
+13. val: ``cli.val --calibrate`` on that run's val split writes
     ``perf.json`` with the JAX CLI's keys; ``cli.serve --temperature auto``
     reports its temperature and serves ``calibrate_scores`` of the T = 1
     scores within 1e-3;
-13. a ``{"kernels": [...]}`` line (launches by path and by width, the
-    variant and source that took each width), alerts/s for each scorer
-    and the daemon (information only), the per-width times in a table and
-    in ``build/smoke_widths.json``;
-14. the card's name and power limit, then as the last line
+14. a ``{"kernels": [...]}`` line (launches by path and by variant and
+    width, the source of each variant, a pico and a nano forward's
+    launches against their bound), alerts/s for each scorer and the daemon
+    (information only), the per-width times in a table and in
+    ``build/smoke_widths.json``;
+15. the card's name and power limit, then as the last line
     ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero and prints no result.  So does a host
@@ -139,6 +150,12 @@ PICO_STAGES = [(15, 64, 2), (7, 128, 2), (3, 256, 6), (1, 512, 2)]  # side, C, d
 # the bf16 block kernel reads x from device memory there (batch, side, C)
 WIDE_MAPS = [(2, 56, 64), (1, 112, 128), (3, 14, 256), (5, 7, 512)]
 TOL = {"float32": dict(rtol=1e-4, atol=1e-5), "bfloat16": dict(rtol=3e-2, atol=3e-2)}
+# the padded widths the bf16 "wgmma_any" kernels are built for
+# (csrc/hopper_mlp.cuh BTS_ANY_WIDTHS), and the bf16 kernels in the library:
+# fused_ln_mlp and the block kernel with and without its input tile, at the
+# 4 tuned widths and at these
+WGMMA_WIDTHS = (64, 128, 192, 256, 320, 384, 448, 512, 640, 768, 1024)
+BF16_KERNELS = 3 * (4 + len(WGMMA_WIDTHS))
 
 META_COLS = [
     "sgscore1", "distpsnr1", "sgscore2", "distpsnr2", "fwhm", "magpsf",
@@ -242,12 +259,13 @@ def phase_setup(state: dict) -> None:
     counts = _build.sass_opcode_counts("HGMMA")
     hgmma = {k: n for k, n in counts.items() if "bf16" in k}
     print(f"  HGMMA instructions in the bf16 kernels: {sorted(hgmma.values())}", flush=True)
-    check(len(hgmma) == 12 and min(hgmma.values()) > 0,
-          "all 12 bf16 kernels (fused_ln_mlp, the block kernel with and without "
-          "its input tile in shared memory, x 4 widths) hold HGMMA instructions")
+    check(len(hgmma) == BF16_KERNELS and min(hgmma.values()) > 0,
+          f"all {BF16_KERNELS} bf16 kernels (fused_ln_mlp, the block kernel with and "
+          f"without its input tile in shared memory, x 4 tuned + {len(WGMMA_WIDTHS)} padded "
+          f"widths) hold HGMMA instructions")
     any_width = sorted(k for k in counts if "anyw" in k)
-    check(len(any_width) == 4, f"the any-width kernels (2 functions x float32 / bfloat16) "
-                               f"are in the library: {any_width}")
+    check(len(any_width) == 2 and not any("bf16" in k for k in any_width),
+          f"the FMA any-width kernels are float32 only (2 functions): {any_width}")
 
 
 # ------------------------------ phase 2 ------------------------------
@@ -637,14 +655,13 @@ def phase_fast_path(state: dict) -> None:
 
 # ------------------------------ phase 5 ------------------------------
 
-def phase_forward_split(state: dict) -> None:
-    """The bf16 forward on device-resident inputs, split with CUDA events into
-    the 12 block-kernel launches and everything else (stem, downsample,
-    heads, sigmoid, the gaps between launches)."""
+def _block_split(sc, per_forward: int, iters: int = 10) -> tuple:
+    """(forward ms, ms in its block-kernel launches) of the scorer's bf16
+    forward at batch BATCH on device-resident inputs, with CUDA events around
+    each launch; ``per_forward`` launches a forward."""
     import torch
     from btsbot_tpu_torch.ops import convnext_block as port_block
 
-    sc = state["scorer_bf16"]
     g = torch.Generator(device="cpu").manual_seed(0)
     images = torch.randn(BATCH, 63, 63, 3, generator=g).to(DEVICE)
     meta = torch.randn(BATCH, len(META_COLS), generator=g).to(DEVICE)
@@ -659,7 +676,6 @@ def phase_forward_split(state: dict) -> None:
         spans.append((start, end))
         return out
 
-    iters = 10
     for _ in range(3):
         sc._score(images, meta)
     whole = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
@@ -673,9 +689,16 @@ def phase_forward_split(state: dict) -> None:
         torch.cuda.synchronize()
     finally:
         port_block._launch_block = launch
-    total = whole[0].elapsed_time(whole[1]) / iters
-    blocks = sum(a.elapsed_time(b) for a, b in spans) / iters
-    check(len(spans) == 12 * iters, "12 block launches per timed forward")
+    check(len(spans) == per_forward * iters, f"{per_forward} block launches per timed forward")
+    return (whole[0].elapsed_time(whole[1]) / iters,
+            sum(a.elapsed_time(b) for a, b in spans) / iters)
+
+
+def phase_forward_split(state: dict) -> None:
+    """The bf16 forward on device-resident inputs, split with CUDA events into
+    the 12 block-kernel launches and everything else (stem, downsample,
+    heads, sigmoid, the gaps between launches)."""
+    total, blocks = _block_split(state["scorer_bf16"], 12)
     state["forward_split"] = (total, blocks)
     print(f"  bf16 forward at batch {BATCH}: {total:.3f} ms = 12 block launches "
           f"{blocks:.3f} ms + everything else {total - blocks:.3f} ms "
@@ -989,9 +1012,11 @@ def phase_train(state: dict) -> None:
 FIXTURE_DIR = os.path.join(ROOT, "tests", "fixtures", "ref_trained_mm_cnn")
 FAMILY_ALERTS = BATCH + 500          # a full batch and a partial one
 CPU_ALERTS = 256                     # the conv families' f32 check on the host
-# the kernel each family's forward launches 12 times (the others launch none)
+# the kernel each family's forward launches (12 times, nano 14; the others
+# launch none)
 KERNEL_OF = {"ConvNeXt": "convnext_block_fused", "frozen_fusion": "convnext_block_fused",
-             "inceptionnext_pico": "fused_ln_mlp", "inceptionnext_pico.r2": "fused_ln_mlp"}
+             "inceptionnext_pico": "fused_ln_mlp", "inceptionnext_pico.r2": "fused_ln_mlp",
+             "mm_ConvNeXt-nano": "convnext_block_fused"}
 
 
 def _family_configs() -> dict:
@@ -1117,9 +1142,9 @@ def _zero_kernel_counts() -> None:
     fused_ln_mlp.launches = 0
 
 
-def _serve_family(name, config, trips, meta) -> dict:
+def _serve_family(name, config, trips, meta, per_batch: int = 12) -> dict:
     """Both scorers at batch 3072 on the card (counted), their checks, and
-    the throughputs."""
+    the throughputs; ``per_batch``: launches of the family's kernel a batch."""
     import numpy as np
     import torch
     from btsbot_tpu_torch import AlertScorer
@@ -1144,7 +1169,7 @@ def _serve_family(name, config, trips, meta) -> dict:
     torch.cuda.synchronize()
     counts = _kernel_counts()
     batches = 2 * _n_batches(FAMILY_ALERTS)
-    want = {k: 12 * batches if KERNEL_OF.get(name) == k else 0 for k in counts}
+    want = {k: per_batch * batches if KERNEL_OF.get(name) == k else 0 for k in counts}
     print(f"  {name}: launches {counts} over {batches} batches", flush=True)
     check(counts == want, f"{name}: " + ", ".join(
         f"{n // batches} {k} launches a batch" for k, n in want.items()))
@@ -1834,10 +1859,11 @@ def _check_kernel(name, fn, ref, args, dname, work, results, key, where) -> None
               f"bound {bound_ms:.4f} ms ({bound_by})")
 
 
-def _width_kernels(size: str, results: dict) -> None:
+def _width_kernels(size: str, results: dict, batch: int = WIDTHS_BATCH,
+                   ratios: tuple = (4, 2, 3)) -> None:
     """Both kernels against their plain versions at one ConvNeXt size's four
-    stage shapes, batch 256, f32 and bf16; fused_ln_mlp at hidden 4C, 2C,
-    3C; a ragged batch and a ragged row count."""
+    stage shapes at ``batch``, f32 and bf16; fused_ln_mlp at hidden ``ratios``
+    times C; a ragged batch and a ragged row count."""
     import torch
     from btsbot_tpu_torch.ops import _build
     from btsbot_tpu_torch.ops.convnext_block import (
@@ -1845,31 +1871,32 @@ def _width_kernels(size: str, results: dict) -> None:
     from btsbot_tpu_torch.ops.ln_mlp import fused_ln_mlp, ln_mlp_reference
 
     lib = _build.library()
-    for side, c, _ in _stage_shapes(f"convnext_{size}"):
-        m = WIDTHS_BATCH * side * side
+    for side, c, depth in _stage_shapes(f"convnext_{size}"):
+        m = batch * side * side
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
             item = dtype.itemsize
-            x, p = _block_inputs(side, c, dtype, seed=c, batch=WIDTHS_BATCH)
-            variant = _build.kernel_variant(c, 4 * c)
+            x, p = _block_inputs(side, c, dtype, seed=c, batch=batch)
+            variant = _build.kernel_variant(c, 4 * c, dtype)
             w_bytes = sum(t.numel() for t in p) * item
-            tag = f"{size} C={c} ({WIDTHS_BATCH},{side},{side}) {dname} {variant}"
-            where = {"size": size, "shape": [WIDTHS_BATCH, side, side, c]}
+            tag = f"{size} C={c} ({batch},{side},{side}) {dname} {variant}"
+            where = {"size": size, "shape": [batch, side, side, c], "depth": depth}
             _check_kernel(f"convnext_block_fused {tag}", convnext_block_fused,
                           convnext_block_reference, (x, *p), dname,
                           (2 * m * c * item + w_bytes, 16 * m * c * c + 2 * 49 * m * c),
-                          results, ("convnext_block_fused", c, 4 * c), where)
+                          results, ("convnext_block_fused", c, 4 * c), dict(where, variant=variant))
             h = depthwise_conv7_reference(x, p[0], p[1]).reshape(-1, c)
             res = x.reshape(-1, c)
-            for ratio in (4, 2, 3):
+            for ratio in ratios:
                 q = p[2:] if ratio == 4 else _block_inputs(
                     side, c, dtype, seed=c + ratio, batch=1, ratio=ratio)[1][2:]
                 hid = ratio * c
+                v_hid = _build.kernel_variant(c, hid, dtype)
                 _check_kernel(
-                    f"fused_ln_mlp {tag} hidden {ratio}C ({_build.kernel_variant(c, hid)})",
+                    f"fused_ln_mlp {tag} hidden {ratio}C ({v_hid})",
                     fused_ln_mlp, ln_mlp_reference, (h, res, *q), dname,
                     (3 * m * c * item + sum(t.numel() for t in q) * item, 4 * m * c * hid),
-                    results, ("fused_ln_mlp", c, hid), where)
+                    results, ("fused_ln_mlp", c, hid), dict(where, variant=v_hid))
             # ragged: a partial batch, and rows one past a tile edge
             tm = (lib.btsbot_any_width_rows(m, c, 4 * c) if variant == "any_width"
                   else lib.btsbot_tile_rows(c))
@@ -1886,6 +1913,41 @@ def _width_kernels(size: str, results: dict) -> None:
                                  f"ln_mlp M={mr}, tile {tm} rows)")
             del x, p, h, res
         torch.cuda.empty_cache()
+
+
+# bf16 shapes off the model kinds' paths (batch, side, C, hidden / C): a
+# C = 640 map wider than 1x1 (the taps' weights read from device memory),
+# C = 520 (a 64-channel slab wholly past C, a partial hidden chunk), C = 1000
+# at 3x3, and maps too wide for the input tile at small C
+ODD_SHAPES = [(5, 7, 640, 4), (4, 5, 520, 3), (3, 3, 1000, 4), (2, 56, 40, 4), (1, 112, 96, 4)]
+
+
+def _odd_shapes() -> None:
+    """Both bf16 wgmma_any kernels against their plain versions at
+    ODD_SHAPES."""
+    import torch
+    from btsbot_tpu_torch.ops import _build
+    from btsbot_tpu_torch.ops.convnext_block import (
+        convnext_block_fused, convnext_block_reference, depthwise_conv7_reference)
+    from btsbot_tpu_torch.ops.ln_mlp import fused_ln_mlp, ln_mlp_reference
+
+    lib = _build.library()
+    for b, side, c, ratio in ODD_SHAPES:
+        x, p = _block_inputs(side, c, torch.bfloat16, seed=c + side, batch=b, ratio=ratio)
+        hid = ratio * c
+        h = depthwise_conv7_reference(x, p[0], p[1]).reshape(-1, c)
+        res = x.reshape(-1, c)
+        with torch.inference_mode():
+            got, want = convnext_block_fused(x, *p).float(), convnext_block_reference(x, *p).float()
+            d_block = (got - want).abs().max().item()
+            ok = torch.allclose(got, want, **TOL["bfloat16"])
+            ok &= torch.allclose(fused_ln_mlp(h, res, *p[2:]).float(),
+                                 ln_mlp_reference(h, res, *p[2:]).float(), **TOL["bfloat16"])
+            torch.cuda.synchronize()
+        check(_build.kernel_variant(c, hid, torch.bfloat16) == "wgmma_any" and ok,
+              f"both wgmma_any kernels match at ({b},{side},{side},{c}) hidden {hid} "
+              f"(input tile {'kept' if lib.btsbot_block_tiles_input(c, side, side) else 'not kept'}"
+              f", block max|d|={d_block:.3g})")
 
 
 def _width_model(kind: str, train: bool) -> None:
@@ -1945,17 +2007,58 @@ def _width_model(kind: str, train: bool) -> None:
 
 def phase_widths(state: dict) -> None:
     """Both kernels at every ConvNeXt width (Queue C1): the stage shapes of
-    atto, femto, nano, tiny, small and base against the plain versions, one
-    f32 forward of each size against the plain model, a train step at atto
-    and base, and InceptionNeXt atto and base."""
+    atto, femto, nano, tiny, small and base against the plain versions (and
+    nano's at the serving batch), one f32 forward of each size against the
+    plain model, a train step at atto and base, and InceptionNeXt atto and
+    base."""
     results: dict = {}
     for size in WIDTH_SIZES:
         _width_kernels(size, results)
+    state["nano_results"] = {}
+    _width_kernels("nano", state["nano_results"], batch=BATCH, ratios=(4,))
+    _odd_shapes()
     for size in WIDTH_SIZES:
         _width_model(f"convnext_{size}", train=size in ("atto", "base"))
     for kind in WIDTHS_INCEPTION:
         _width_model(kind, train=False)
     state["width_results"] = results
+
+
+# ------------------------------ nano ------------------------------
+
+# mm_ConvNeXt with the JAX package's default backbone: a config without
+# model_kind gets convnext_nano.d1h_in1k (dims 80 / 160 / 320 / 640, depths
+# 2 / 2 / 8 / 2: 14 block launches a batch, none at a tuned width)
+NANO_CONFIG = {k: v for k, v in FLAGSHIP_CONFIG.items() if k != "model_kind"}
+NANO_LAUNCHES = 14
+
+
+def phase_nano(state: dict) -> None:
+    """mm_ConvNeXt-nano served in bf16 and f32 through AlertScorer at batch
+    3072 (14 block launches a batch, f32 within 1e-5 of the plain model,
+    bf16 within 0.01 of f32), and the bf16 forward split into its 14 block
+    launches and everything else."""
+    import numpy as np
+    from btsbot_tpu_torch.core.config import normalize_config
+    from btsbot_tpu_torch.models.convnext import convnext_spec
+
+    kind = normalize_config(NANO_CONFIG).model_kind
+    spec = convnext_spec(kind)
+    check(kind == "convnext_nano.d1h_in1k" and list(spec["dims"]) == [80, 160, 320, 640]
+          and sum(spec["depths"]) == NANO_LAUNCHES,
+          f"a config without model_kind builds {kind} (80 / 160 / 320 / 640, 14 blocks)")
+    trips = _normalised_triplets(FAMILY_ALERTS, seed=61)
+    meta = np.random.default_rng(62).normal(size=(FAMILY_ALERTS, len(META_COLS))).astype(
+        np.float32)
+    served = _serve_family("mm_ConvNeXt-nano", NANO_CONFIG, trips, meta,
+                           per_batch=NANO_LAUNCHES)
+    total, blocks = _block_split(served["scorer_bf16"], NANO_LAUNCHES)
+    state["nano"] = {"launches": served["launches"]["convnext_block_fused"],
+                     "rates": served["rates"], "split": (total, blocks)}
+    print(f"  mm_ConvNeXt-nano bf16 forward at batch {BATCH}: {total:.3f} ms = "
+          f"{NANO_LAUNCHES} block launches {blocks:.3f} ms + everything else "
+          f"{total - blocks:.3f} ms ({BATCH / total * 1e3:.0f} alerts/s) on {state['gpu']}",
+          flush=True)
 
 
 # ------------------------------ daemon ------------------------------
@@ -2225,7 +2328,7 @@ def phase_report(state: dict) -> None:
     res = state["kernel_results"]
     fam = state["families"]
     paths = {"mm_ConvNeXt serving": state["launches_main"]["convnext_block_fused"],
-             **fam["launches"]}
+             **fam["launches"], "mm_ConvNeXt-nano serving": state["nano"]["launches"]}
     inc = state["inceptionnext"]
     ln_mlp_paths = {"fast_mm_convnext_logits": state["launches_fast"]["fused_ln_mlp"],
                     **inc["launches"]}
@@ -2248,6 +2351,15 @@ def phase_report(state: dict) -> None:
                                                   "max_abs_err")}
     kernels[1]["hidden_2c"]["per"] = ("one inceptionnext_pico.r2 forward at batch 3072, "
                                       "bfloat16 (12 launches)")
+    # nano's stage shapes at the serving batch (phase "widths"), a forward's
+    # 14 launches in bf16 on the wgmma_any kernels
+    for entry, name in zip(kernels, ("convnext_block_fused", "fused_ln_mlp")):
+        rows = [r for (n, _, _), rs in state["nano_results"].items() if n == name for r in rs]
+        nano = _kernel_entry(name, "", "", 0, rows)
+        entry["nano_forward"] = {k: nano[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                      "max_abs_err")}
+        entry["nano_forward"]["per"] = (f"one convnext_nano forward at batch {BATCH}, "
+                                        f"bfloat16 ({NANO_LAUNCHES} launches, wgmma_any)")
     print("  the first version of both kernels (float FMAs on the CUDA cores), recorded "
           "on an NVIDIA H100 80GB HBM3 at 700 W and not measured here: "
           "convnext_block_fused 27.6 ms, fused_ln_mlp 24.4 ms for the same 12 launches",
@@ -2278,6 +2390,12 @@ def phase_report(state: dict) -> None:
               f"{r['f32']:.1f} alerts/s; fused_ln_mlp {100 * ln_mlp / total:.1f} % of the "
               f"bf16 forward; cli.train (.r2) 1 epoch {inc['cli_s']:.1f} s on {state['gpu']}",
               flush=True)
+    nano = state["nano"]
+    total, blocks = nano["split"]
+    print(f"  mm_ConvNeXt-nano at batch {BATCH}: bf16 {nano['rates']['bf16']:.1f}, f32 "
+          f"{nano['rates']['f32']:.1f} alerts/s; bf16 forward {total:.3f} ms, its "
+          f"{NANO_LAUNCHES} block launches {blocks:.3f} ms ({100 * blocks / total:.1f} %) "
+          f"on {state['gpu']}", flush=True)
     mx = state["maxvit"]
     for name in ("mm_MaxViT", "MaxViT"):
         print(f"  {name}: " + ", ".join(
@@ -2291,7 +2409,7 @@ def phase_report(state: dict) -> None:
         f"{t['fusion_cli_s']:.1f} s; maxvit_tiny_rw_160 bf16 {t['rate160']:.1f} alerts/s "
         f"on {state['gpu']}", flush=True)
     # the widths phase: each size's forward, and every width each kernel was
-    # launched at in this run (by variant: the tuned sources or any_width.cu)
+    # launched at in this run (by variant: tuned, wgmma_any or any_width)
     from btsbot_tpu_torch.ops import _build
     from btsbot_tpu_torch.ops.convnext_block import convnext_block_fused
     from btsbot_tpu_torch.ops.ln_mlp import fused_ln_mlp
@@ -2299,21 +2417,20 @@ def phase_report(state: dict) -> None:
         entry = kernels[0] if name == "convnext_block_fused" else kernels[1]
         entry["launches_by_path"][f"mm_ConvNeXt {kind} forward (widths)"] = n
     kernels[0]["launches_by_path"]["mm_ConvNeXt cli.serve daemon"] = state["daemon"]["launches"]
-    for entry, fn in zip(kernels, (convnext_block_fused, fused_ln_mlp)):
+    for entry, fn, key in zip(kernels, (convnext_block_fused, fused_ln_mlp),
+                              ("convnext_block", "ln_mlp")):
         entry["max_abs_err"] = max([entry["max_abs_err"]] + [
-            r["max_abs_err"] for (name, _, _), rows in state["width_results"].items()
-            if name == entry["name"] for r in rows])
+            r["max_abs_err"] for res_ in (state["width_results"], state["nano_results"])
+            for (name, _, _), rows in res_.items() if name == entry["name"] for r in rows])
         by = {}
-        for (c, hidden), n in sorted(fn.launches_by_width.items()):
-            by.setdefault(_build.kernel_variant(c, hidden), {})[f"{c}x{hidden}"] = n
+        for (variant, c, hidden), n in sorted(fn.launches_by_width.items()):
+            by.setdefault(variant, {})[f"{c}x{hidden}"] = n
         entry["launches_by_width"] = by
         entry["widths"] = {v: sorted({int(k.split("x")[0]) for k in d}) for v, d in by.items()}
-    kernels[0]["sources_by_variant"] = {
-        "tuned": "btsbot_tpu_torch/csrc/convnext_block.cu",
-        "any_width": "btsbot_tpu_torch/csrc/any_width.cu"}
-    kernels[1]["sources_by_variant"] = {
-        "tuned": "btsbot_tpu_torch/csrc/ln_mlp.cu",
-        "any_width": "btsbot_tpu_torch/csrc/any_width.cu"}
+        entry["sources_by_variant"] = {
+            "tuned": f"btsbot_tpu_torch/csrc/{key}.cu",
+            "wgmma_any": f"btsbot_tpu_torch/csrc/{key}.cu",
+            "any_width": "btsbot_tpu_torch/csrc/any_width.cu"}
     _report_widths(state)
     _report_daemon(state)
     state["kernels_line"] = json.dumps({"kernels": kernels})
@@ -2334,7 +2451,7 @@ def _report_widths(state: dict) -> None:
     for r in rows:
         if r["hidden"] == 4 * r["C"]:
             print(f"    {r['size']:5s} {r['kernel']:20s} {str(tuple(r['shape'])):19s} "
-                  f"{r['dtype']:8s} {_build.kernel_variant(r['C'], r['hidden']):9s} "
+                  f"{r['dtype']:8s} {r['variant']:9s} "
                   f"{r['ms']:.4f} / {r['plain_ms']:.4f} / {r['bound_ms']:.4f} "
                   f"({r['bound_by']}) max|d|={r['max_abs_err']:.3g}", flush=True)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -2356,6 +2473,7 @@ PHASES = [("setup", phase_setup), ("kernels", phase_kernels),
           ("forward split", phase_forward_split), ("train", phase_train),
           ("families", phase_families), ("maxvit", phase_maxvit),
           ("inceptionnext", phase_inceptionnext), ("widths", phase_widths),
+          ("nano", phase_nano),
           ("daemon", phase_daemon), ("val", phase_val), ("report", phase_report)]
 
 

@@ -4,10 +4,12 @@ JAX package's (CPU, standard library only on both sides).
 Records written by either codec read back identically with the other;
 ``write_ocf`` produces the same bytes under the ``null`` and ``deflate``
 codecs; ``iter_ocf_stream`` yields the same records from a non-seekable
-stream; ``synthetic_avro_ocf`` gives the same blob in both packages.
+stream; ``synthetic_avro_ocf`` gives the same blob in both packages, but
+for the second gzip writes into each cutout.
 """
 
 import io
+import time
 
 import numpy as np
 import pytest
@@ -123,11 +125,38 @@ def test_ztf_schema_and_iter_ocf_stream_match_jax(codec):
     assert got == want == records
 
 
-def test_synthetic_avro_ocf_matches_jax():
+def _stamps_without_mtime(blob):
+    """The OCF header bytes and the decoded records, each gzip member of the
+    cutouts with its MTIME field (bytes 4-7, the second it was written)
+    zeroed: every other byte of the blob's content is kept."""
+    buf = io.BytesIO(blob)
+    avro._read_ocf_header(buf)
+    header = blob[:buf.tell()]
+    _, records = avro.read_ocf(blob)
+    for rec in records:
+        for key, cut in rec.items():
+            if key.startswith("cutout"):
+                stamp = cut["stampData"]
+                assert stamp[:2] == b"\x1f\x8b"  # a gzip member
+                cut["stampData"] = stamp[:4] + bytes(4) + stamp[8:]
+    return header, records
+
+
+@pytest.mark.parametrize("clock", ["real", "two_seconds"])
+def test_synthetic_avro_ocf_matches_jax(clock, monkeypatch):
+    """Both packages write the same archive.  gzip stamps each cutout with
+    the current second, so the two blobs are compared without it;
+    ``two_seconds`` puts the two calls on different seconds."""
     cols = ["magpsf", "sgscore1"]
+    if clock == "two_seconds":
+        monkeypatch.setattr(time, "time", lambda: 1_700_000_000.0)
     got = synthetic_avro_ocf(5, cols, seed=3, codec="deflate", block_records=2)
+    if clock == "two_seconds":
+        monkeypatch.setattr(time, "time", lambda: 1_700_000_001.0)
     want = jax_synthetic_avro_ocf(5, cols, seed=3, codec="deflate", block_records=2)
-    assert got == want
+    assert _stamps_without_mtime(got) == _stamps_without_mtime(want)
+    if clock == "two_seconds":
+        assert got != want  # the case the raw comparison failed on
     _, records = avro.read_ocf(got)
     assert [r["candid"] for r in records] == list(range(5))
 

@@ -5,9 +5,10 @@ card every ConvNeXt and InceptionNeXt size but pico raised.  Held here in
 pure Python, with the kernel library replaced by a recorder and the input
 standing in for a CUDA tensor: both wrappers accept every C of
 ``CONVNEXT_CONFIGS`` at every hidden width k·C an ``.r<k>`` kind can ask
-for, and send it by width to the tuned kernels (C = 64, 128, 256, 512) or
-to ``csrc/any_width.cu`` (every other width), counting each launch by
-width.  The kernels' arithmetic is held on the card by ``chip_smoke.py``
+for, and send it by width and type to the tuned kernels (C = 64, 128,
+256, 512), or at every other width to ``csrc/any_width.cu`` in float32 and
+to the padded tensor-core kernels ("wgmma_any") in bfloat16, counting each
+launch by variant and width.  The kernels' arithmetic is held on the card by ``chip_smoke.py``
 (phase "widths").  Beside that: the plain path's f32 logits of mm_ConvNeXt
 at the femto and nano widths against flax on the same weights, within
 atol 1e-5.
@@ -85,8 +86,10 @@ def test_both_wrappers_launch_every_width(c, dtype, recorder):
         rows = args[0].reshape(-1, c)
         out = port_mlp._FusedLnMlp.apply(rows, rows, *args[3:])
         assert out.shape == rows.shape
-    tuned = c in _build.TUNED_WIDTHS
-    suffix = "" if tuned else "_any"
+    variant = _build.kernel_variant(c, 4 * c, dtype)
+    suffix = {"tuned": "", "any_width": "_any", "wgmma_any": "_wgmma"}[variant]
+    assert variant == ("tuned" if c in _build.TUNED_WIDTHS
+                       else "any_width" if dtype == torch.float32 else "wgmma_any")
     want = []
     for k in RATIOS:
         want += [(f"btsbot_convnext_block{suffix}", c, k * c),
@@ -94,17 +97,24 @@ def test_both_wrappers_launch_every_width(c, dtype, recorder):
     assert recorder.calls == want
     for fn in (port_block.convnext_block_fused, port_mlp.fused_ln_mlp):
         assert fn.launches == len(RATIOS)
-        assert fn.launches_by_width == {(c, k * c): 1 for k in RATIOS}
+        assert fn.launches_by_width == {(variant, c, k * c): 1 for k in RATIOS}
 
 
 def test_kernel_variant_by_width():
-    assert [_build.kernel_variant(c, 4 * c) for c in WIDTHS] == [
-        "tuned" if c in (64, 128, 256, 512) else "any_width" for c in WIDTHS]
-    assert _build.kernel_variant(64, 64 * 3) == "tuned"
-    assert _build.kernel_variant(128, 200) == "any_width"  # hidden not in 64-units
-    for c, hidden in ((36, 144), (40, 0), (0, 64), (64, 100)):
-        with pytest.raises(ValueError, match="multiples of 8"):
-            _build.kernel_variant(c, hidden)
+    for dtype, other in ((torch.float32, "any_width"), (torch.bfloat16, "wgmma_any")):
+        assert [_build.kernel_variant(c, 4 * c, dtype) for c in WIDTHS] == [
+            "tuned" if c in (64, 128, 256, 512) else other for c in WIDTHS]
+        assert _build.kernel_variant(64, 64 * 3, dtype) == "tuned"
+        assert _build.kernel_variant(128, 200, dtype) == other  # hidden not in 64-units
+        for c, hidden in ((36, 144), (40, 0), (0, 64), (64, 100)):
+            with pytest.raises(ValueError, match="multiples of 8"):
+                _build.kernel_variant(c, hidden, dtype)
+    # nothing takes bf16 past 1024 channels, or another type
+    assert _build.kernel_variant(1032, 4 * 1032, torch.float32) == "any_width"
+    with pytest.raises(ValueError, match="up to 1024"):
+        _build.kernel_variant(1032, 4 * 1032, torch.bfloat16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        _build.kernel_variant(64, 256, torch.float16)
 
 
 @pytest.mark.parametrize("size", ["femto", "nano"])
