@@ -10,8 +10,11 @@ re-validates a logged run: config, run name and history come from the
 experiment-tracking API, the run directory from the training naming
 convention (``{out_root}/{model}_{version}_N{N}_torch/{run_name}``).
 
-``--figure`` raises NotImplementedError: the diagnostic figure is not
-ported yet (ROADMAP Queue A item 3).
+``--figure`` also draws the 12-panel diagnostic PDF
+(``{split}_diagnostics.pdf`` beside ``perf.json``) with the training curves
+of the run's history (the tracking API's for ``--run-id``, else
+``report.json``'s); it needs matplotlib and raises before evaluating without
+it.
 """
 
 from __future__ import annotations
@@ -42,6 +45,38 @@ def resolve_logged_run(run_id: str, api=None, project: str = "BTSbot/runs/",
     return config, run.name, history, os.path.join(out_root, run_model_name, run.name)
 
 
+def _history_run_data(history, run_name: str) -> dict:
+    """Training-curve series for the figure (reference val.py:714-723),
+    from a DataFrame-like or dict-of-lists history in the reference's or
+    the trainer's column names."""
+    def col(*names):
+        for n in names:
+            try:
+                series = history[n]
+            except (KeyError, IndexError, TypeError):
+                continue
+            return [float(v) for v in list(series)]
+        return []
+
+    return {
+        "run_name": run_name,
+        "loss": col("train_loss", "loss"),
+        "accuracy": col("train_accuracy", "accuracy"),
+        "val_loss": col("val_loss"),
+        "val_accuracy": col("val_accuracy"),
+    }
+
+
+def _report_run_data(model_dir: str) -> dict | None:
+    """The training curves of a run directory's report.json, if any."""
+    path = os.path.join(model_dir, "report.json")
+    if not os.path.isfile(path):
+        return None
+    with open(path) as f:
+        report = json.load(f)
+    return _history_run_data(report.get("Training history", {}), report.get("Run name", ""))
+
+
 def main(argv=None, api=None) -> dict:
     """Returns the summary written to perf.json.  api: injectable
     tracking-API client for --run-id (tests pass a fake)."""
@@ -60,7 +95,7 @@ def main(argv=None, api=None) -> dict:
     p.add_argument("--data-dir", default="data")
     p.add_argument("--split", default="val")
     p.add_argument("--figure", action="store_true",
-                   help="Not ported yet: raises NotImplementedError")
+                   help="Draw the 12-panel diagnostic PDF (needs matplotlib)")
     p.add_argument("--calibrate", action="store_true",
                    help="Fit temperature scaling on this split and report "
                         "NLL/ECE before/after (metrics/calibration.py)")
@@ -71,19 +106,23 @@ def main(argv=None, api=None) -> dict:
     from ..data.dataset import load_split
     from ..engine.checkpoint import load_model_checkpoint, load_run_dir
     from ..engine.eval import evaluate
-    from ..metrics.diagnostics import diagnostic_summary
+    from ..metrics.diagnostics import close_figure, diagnostic_summary, require_matplotlib
     from ..models.factory import build_model
 
+    if args.figure:
+        require_matplotlib()
     if args.run_id is not None:
-        config, run_name, _, model_dir = resolve_logged_run(
+        config, run_name, history, model_dir = resolve_logged_run(
             args.run_id, api=api, project=args.project, out_root=args.out_root)
         args.model_dir = model_dir
         weights = load_model_checkpoint(config, model_dir)
+        run_data = _history_run_data(history, run_name)
         print(f"re-validating logged run {args.run_id} ({run_name}) from {model_dir}")
     elif args.model_dir is None:
         p.error("need a model_dir or --run-id")
     else:
         config, weights = load_run_dir(args.model_dir)
+        run_data = _report_run_data(args.model_dir)
     model = build_model(config, device=args.device)
     model.load_state_dict(weights, strict=True)
     model.eval()
@@ -92,8 +131,12 @@ def main(argv=None, api=None) -> dict:
     loss, acc, raw_preds, labels = evaluate(model, config, ds, pos_weight=ds.pos_weight)
     print(f"{args.split} loss {loss:.5f}  acc {acc:.5f}")
 
-    summary = diagnostic_summary(ds.candidates, raw_preds, labels,
-                                 make_figure=args.figure)
+    summary = diagnostic_summary(
+        ds.candidates, raw_preds, labels, run_data=run_data, make_figure=args.figure,
+        fig_path=os.path.join(args.model_dir, f"{args.split}_diagnostics.pdf"))
+    if args.figure:
+        close_figure(summary)
+        print(f"Wrote {os.path.join(args.model_dir, f'{args.split}_diagnostics.pdf')}")
     if args.calibrate:
         from ..metrics.calibration import calibration_report
         summary["calibration"] = calibration_report(raw_preds, labels)

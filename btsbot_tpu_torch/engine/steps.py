@@ -22,6 +22,16 @@ instead.  A model without images skips augmentation.
 ``make_device_train_step`` + ``put_dataset_on_device`` are the
 ``device_data`` path: the training set lives on the card and each step
 gathers its batch by index.
+
+Distillation (``teacher=``, JAX steps.py:29-61): the teacher scores the
+same augmented batch, images and metadata in its own parameters' type
+(float32 unless it was loaded otherwise, even when the student computes in
+bfloat16), in eval mode and without gradients, and the loss becomes
+α·BCE + (1 − α)·KD (``engine.loss.binary_kd_loss``) with ``distill_alpha``
+(0.5) and ``distill_temperature`` (2.0) from the config.  The teacher's parameters
+ask for no gradient and are not in the student's optimizer; on the card
+every teacher ConvNeXt block is the block kernel (forward only).  The eval
+step ignores the teacher: the val loss is plain BCE.
 """
 
 from __future__ import annotations
@@ -30,7 +40,7 @@ import numpy as np
 import torch
 
 from ..ops.augment import augment_triplets
-from .loss import weighted_bce_with_logits
+from .loss import binary_kd_loss, weighted_bce_with_logits
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -66,17 +76,38 @@ def model_inputs(config, images, metadata, dtype):
     return images.to(dtype), (metadata if config.need_metadata else None)
 
 
-def make_train_step(config, plain: bool = False):
+def _typed_inputs(config, images, metadata, dtype):
+    """(image_input, metadata_input) of the config's modality, both in
+    ``dtype``: the inputs of a model whose parameters are in ``dtype``, as
+    the scorers feed one (engine.serve)."""
+    return (images.to(dtype) if config.need_triplets else None,
+            metadata.to(dtype) if config.need_metadata else None)
+
+
+def prepare_teacher(teacher):
+    """The teacher frozen for distillation: eval mode, no gradients."""
+    teacher.eval()
+    teacher.requires_grad_(False)
+    return teacher
+
+
+def make_train_step(config, plain: bool = False, teacher=None):
     """``train_step(state, images, metadata, labels, pos_weight)`` → metrics;
     the state (model, optimizer, step) is updated in place.  ``plain=True``
-    runs every block in its plain version (for holding the kernel against
-    it)."""
+    runs every block (the teacher's too) in its plain version, for holding
+    the kernels against it.  ``teacher``: a model to distill from (see the
+    module doc)."""
     need_triplets = config.need_triplets
     dtype = compute_dtype(config)
     aug_flags = dict(h_flip=bool(config.get("data_aug_h_flip", True)),
                      v_flip=bool(config.get("data_aug_v_flip", True)),
                      rot=bool(config.get("data_aug_rot", True)))
     do_augment = need_triplets and any(aug_flags.values())
+    if teacher is not None:
+        prepare_teacher(teacher)
+        teacher_dtype = next(teacher.parameters()).dtype
+        alpha = float(config.get("distill_alpha", 0.5))
+        temperature = float(config.get("distill_temperature", 2.0))
 
     def train_step(state, images, metadata, labels, pos_weight):
         model, opt = state.model, state.optimizer
@@ -84,10 +115,17 @@ def make_train_step(config, plain: bool = False):
         state.generator.manual_seed(step_seed(state.seed, state.step))
         if do_augment:
             images = augment_triplets(state.generator, images, **aug_flags)
+        if teacher is not None:
+            with torch.no_grad():
+                t_logits = teacher(*_typed_inputs(config, images, metadata, teacher_dtype),
+                                   plain=plain)
         image_input, metadata_input = model_inputs(config, images, metadata, dtype)
         logits = model(image_input=image_input, metadata_input=metadata_input,
                        plain=plain)
         loss = weighted_bce_with_logits(logits, labels, pos_weight)
+        if teacher is not None:
+            loss = alpha * loss + (1.0 - alpha) * binary_kd_loss(logits, t_logits,
+                                                                 temperature)
         opt.zero_grad(set_to_none=True)
         loss.backward()
         lr = state.lr_schedule(state.step)
@@ -115,10 +153,10 @@ def put_dataset_on_device(dataset, device, image_dtype=None):
     return put(dataset.images, image_dtype), put(dataset.metadata), put(dataset.labels)
 
 
-def make_device_train_step(config, images, metadata, labels):
+def make_device_train_step(config, images, metadata, labels, teacher=None):
     """``step(state, idx, pos_weight)`` over a device-resident set: the batch
     is gathered on the device from the (B,) index tensor ``idx``."""
-    base = make_train_step(config)
+    base = make_train_step(config, teacher=teacher)
 
     def device_train_step(state, idx, pos_weight):
         def take(x):

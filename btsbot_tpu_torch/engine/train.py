@@ -19,13 +19,22 @@ kernel (an InceptionNeXt block's LN → MLP half ``fused_ln_mlp``).  Every
 family trains here; a frozen_fusion run with
 ``image_model_dir`` (and no ``skip_load_state``) starts from the branch run
 directories' ``best_model.pth`` files and updates only its combined head
-(engine.state).  Not ported yet (ROADMAP): the mesh, the experiment logger, a
-distillation teacher, a backbone checkpoint, embeddings and the diagnostic
-figure.
+(engine.state).  A ``backbone_checkpoint`` (or ``pretrained`` with timm
+installed) seeds the backbone (``interop.pretrained``, after an
+``initial_state_dict`` and a fusion's branches, as in the JAX package).
+
+``teacher=`` distills from a trained model (engine.steps; ``engine.distill``
+loads one), ``logger=`` receives each epoch's metrics and the run's summary
+(``utils.logging``), ``generate_embeddings`` in the config writes
+``embeddings.csv`` (``metrics.embeddings``), and ``make_figure`` draws the
+12-panel diagnostic PDF per split (``metrics.diagnostics``; it needs
+matplotlib, and the run raises before its first step without it).  Not
+ported yet (ROADMAP): the mesh.
 """
 
 from __future__ import annotations
 
+import csv
 import os
 import time
 from typing import Any, Callable, Mapping
@@ -43,7 +52,7 @@ from ..data.dataset import (
     load_split,
 )
 from ..metrics.classification import alert_metrics
-from ..metrics.diagnostics import diagnostic_summary
+from ..metrics.diagnostics import close_figure, diagnostic_summary, require_matplotlib
 from ..metrics.report import make_report
 from ..models.factory import build_model
 from ..models.fusion import load_fusion_branches
@@ -76,13 +85,27 @@ def _initial_weights(config, model, initial_state_dict, log) -> None:
         model.load_state_dict(load_fusion_branches(config, model.state_dict()),
                               strict=True)
         log("Loaded frozen-fusion branch weights from model dirs")
-    elif config.get("backbone_checkpoint"):
-        raise NotImplementedError(
-            "backbone_checkpoint initialisation is not ported yet (ROADMAP "
-            "Queue A item 8); pass initial_state_dict")
-    elif config.get("pretrained"):
-        log("pretrained=true but the port has no pretrained backbone source; "
-            "starting from torch's default init")
+    elif config.get("backbone_checkpoint") or config.get("pretrained"):
+        # the reference's recipe: backbones start from pretrained timm / zoobot
+        # weights; the hook decides which families qualify
+        from ..interop.pretrained import maybe_init_pretrained
+        maybe_init_pretrained(config, model, log=log)
+
+
+def _write_embeddings(model, config, ds, path: str, seed: int, log) -> None:
+    """``embeddings.csv`` as the JAX package writes it: the columns
+    umap_emb_1, umap_emb_2, candid, every value a float64 in pandas'
+    formatting (the shortest repr), so a candid above 2**53 is rounded."""
+    from ..metrics.embeddings import generate_embeddings
+
+    candids = (ds.candidates["candid"] if ds.candidates is not None
+               and "candid" in ds.candidates else None)
+    emb = generate_embeddings(model, config, ds, candids=candids, seed=seed)
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["umap_emb_1", "umap_emb_2", "candid"])
+        writer.writerows([repr(float(v)) for v in row] for row in emb)
+    log(f"Wrote embeddings for {len(emb)} alerts")
 
 
 def run_training(
@@ -99,16 +122,24 @@ def run_training(
     epoch_callback: Callable[[int, dict], None] | None = None,
     initial_state_dict: Mapping[str, Any] | None = None,
     device=None,
+    teacher=None,
+    logger=None,
 ) -> dict[str, Any]:
     """Train, evaluate every epoch, early-stop, checkpoint and report.
     ``initial_state_dict``: reference-named starting weights (numpy arrays
-    or tensors).  ``make_figure`` defaults to False here: the figure is not
-    ported, and True raises.  Returns the JAX package's keys (model_dir, model, state,
-    history, summaries) and ``best_val_scores``, the val predictions of the
-    epoch whose weights are in ``best_model.pth``."""
+    or tensors).  ``teacher``: a model to distill from, moved to the run's
+    device.  ``logger``: an experiment logger (``utils.logging``).
+    ``make_figure`` defaults to False here, unlike the JAX package, because
+    the figure needs matplotlib, which a card machine may lack; True
+    without matplotlib raises ImportError before training.  Returns the JAX
+    package's keys (model_dir, model, state, history, summaries) and
+    ``best_val_scores``, the val predictions of the epoch whose weights are
+    in ``best_model.pth``."""
     config = normalize_config(config)
     seed = int(config.get("random_seed", 0))
     dev = resolve_device(device)
+    if make_figure:
+        require_matplotlib()
 
     # /---------------- data ----------------/
     if train_ds is None:
@@ -134,13 +165,18 @@ def run_training(
     _initial_weights(config, model, initial_state_dict, log)
     state = create_train_state(config, model, steps_per_epoch, seed=seed)
 
+    if teacher is not None:
+        teacher = teacher.to(dev)
+        log(f"Distilling from teacher (alpha={config.get('distill_alpha', 0.5)}, "
+            f"T={config.get('distill_temperature', 2.0)})")
     device_data = bool(config.get("device_data", False))
     if device_data:
         image_dtype = config.get("device_data_dtype")
         train_step = make_device_train_step(config, *put_dataset_on_device(
-            train_ds, dev, COMPUTE_DTYPES[image_dtype] if image_dtype else None))
+            train_ds, dev, COMPUTE_DTYPES[image_dtype] if image_dtype else None),
+            teacher=teacher)
     else:
-        train_step = make_train_step(config)
+        train_step = make_train_step(config, teacher=teacher)
 
     run_model_name = (f"{config['model_name']}_{config['train_data_version']}"
                       f"_N{config.get('N_max', 100)}_torch")
@@ -238,17 +274,20 @@ def run_training(
             log("  triggered early stopping")
             break
 
+        epoch_metrics = {
+            "epoch": epoch,
+            "train_loss": epoch_train_loss,
+            "train_accuracy": epoch_train_acc,
+            "val_loss": val_loss,
+            "val_accuracy": val_acc,
+            "learning_rate": float(lr_at_epoch(
+                epoch, float(config["learning_rate"]), epochs,
+                int(config.get("warmup_epochs", 0)))),
+        }
+        if logger is not None:
+            logger.log(epoch_metrics, step=epoch)
         if epoch_callback is not None:
-            epoch_callback(epoch, {
-                "epoch": epoch,
-                "train_loss": epoch_train_loss,
-                "train_accuracy": epoch_train_acc,
-                "val_loss": val_loss,
-                "val_accuracy": val_acc,
-                "learning_rate": lr_at_epoch(
-                    epoch, float(config["learning_rate"]), epochs,
-                    int(config.get("warmup_epochs", 0))),
-            })
+            epoch_callback(epoch, epoch_metrics)
 
     if best_raw_preds is None:  # no epoch improved (resume edge): use last
         if start_epoch >= epochs:
@@ -267,31 +306,56 @@ def run_training(
         "val_accuracy": val_accs[:final_epoch + 1],
     }
 
+    # the test split and the embeddings come from the best model, as the
+    # reference scores its test split with the reloaded best_model.pth
+    eval_model = model
+    if os.path.isfile(best_path) and (test_ds is not None
+                                      or config.get("generate_embeddings", False)):
+        eval_model = build_model(config, device=dev, seed=seed)
+        eval_model.load_state_dict(load_model_checkpoint(config, model_dir))
+
     summaries = {}
     analysis = [("val", val_ds, best_raw_preds, best_val_labels)]
     if test_ds is not None:
-        # the test split is scored by the best model, as the reference does
-        eval_model = model
-        if os.path.isfile(best_path):
-            eval_model = build_model(config, device=dev, seed=seed)
-            eval_model.load_state_dict(load_model_checkpoint(config, model_dir))
         _, _, test_preds, test_labels = evaluate(
             eval_model, config, test_ds, pos_weight, batch_size)
         analysis.append(("test", test_ds, test_preds, test_labels))
 
     for split, ds, preds, labels in analysis:
         if ds.candidates is not None and "objectId" in ds.candidates:
-            summary = diagnostic_summary(ds.candidates, preds, labels,
-                                         make_figure=make_figure)
+            summary = diagnostic_summary(
+                ds.candidates, preds, labels,
+                run_data={"run_name": run_name, "loss": run_data["train_loss"],
+                          "accuracy": run_data["train_accuracy"],
+                          "val_loss": run_data["val_loss"],
+                          "val_accuracy": run_data["val_accuracy"]},
+                make_figure=make_figure,
+                fig_path=os.path.join(model_dir, f"{split}_diagnostics.pdf"))
+            close_figure(summary)
         else:
             summary = alert_metrics(labels, preds)
         summaries[split] = summary
 
     make_report(config, os.path.join(model_dir, "report.json"), run_data,
                 summaries["val"])
+
+    if logger is not None:
+        from ..utils.logging import summary_from_diagnostics
+        flat: dict[str, Any] = {}
+        for split, summary in summaries.items():
+            if "policy_performance" in summary or "roc_auc" in summary:
+                flat.update(summary_from_diagnostics(
+                    summary, prefix="" if split == "val" else f"{split}_"))
+        logger.set_summary(flat)
+
+    # penultimate-layer embeddings (the reference reads this flag, but its
+    # generator module is missing from the package — train.py:449-469)
     if config.get("generate_embeddings", False):
-        log("generate_embeddings is not ported yet (ROADMAP Queue A item 11); "
-            "skipping.")
+        try:
+            _write_embeddings(eval_model, config, test_ds if test_ds is not None else val_ds,
+                              os.path.join(model_dir, "embeddings.csv"), seed, log)
+        except Exception as e:  # noqa: BLE001 — the reference's guard
+            log(f"Error generating embeddings: {e}; skipping.")
 
     log(f"Best val loss: {np.min(val_losses[:final_epoch + 1]):.5f}  "
         f"best val acc: {np.max(val_accs[:final_epoch + 1]):.5f}")

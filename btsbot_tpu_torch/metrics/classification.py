@@ -86,3 +86,8 @@ def alert_metrics(labels: np.ndarray, raw_preds: np.ndarray,
         "confusion": {"TP": tp, "FP": fp, "TN": tn, "FN": fn},
     }
 
+
+
+def f1(precision: float, recall: float) -> float:
+    """F1 with the reference's epsilon guard (train.py:394-395)."""
+    return 2 * precision * recall / (precision + recall + 1e-7)

@@ -14,6 +14,7 @@ from ..core.device import resolve_device
 from .cnn import MmCnn, UmCnn
 from .convnext import ConvNeXtClassifier, MmConvNeXt
 from .fusion import FrozenFusion
+from .init import apply_init_scheme
 from .maxvit import MaxViTClassifier, MmMaxViT
 from .mlp import UmNN
 
@@ -30,10 +31,12 @@ MODEL_REGISTRY = {
 
 
 def build_model(config, dtype=torch.float32, device=None, seed: int = 0):
-    """Construct the model for a config in eval mode, initialised by torch's
-    module defaults from ``seed`` (γ = 1e-6), with parameters in ``dtype``
-    on ``device`` (default: the CUDA card; raises without one).  The train
-    step puts it in train mode itself (engine.steps)."""
+    """Construct the model for a config in eval mode, initialised from
+    ``seed`` by the config's ``init_scheme`` (``models.init``: "torch", the
+    default, is torch's module defaults with γ = 1e-6; "flax" redraws every
+    Conv / Linear as lecun_normal with zero biases), with parameters in
+    ``dtype`` on ``device`` (default: the CUDA card; raises without one).
+    The train step puts it in train mode itself (engine.steps)."""
     if not isinstance(config, Config):
         config = normalize_config(config)
     dev = resolve_device(device)
@@ -45,6 +48,7 @@ def build_model(config, dtype=torch.float32, device=None, seed: int = 0):
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = cls(config)
+    apply_init_scheme(model, config.get("init_scheme", "torch"), seed)
     return model.to(device=dev, dtype=dtype).eval()
 
 

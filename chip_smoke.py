@@ -112,12 +112,29 @@ convnext_pico, 63×63×3 triplets + 25 metadata features) on the card:
     ``perf.json`` with the JAX CLI's keys; ``cli.serve --temperature auto``
     reports its temperature and serves ``calibrate_scores`` of the T = 1
     scores within 1e-3;
-14. a ``{"kernels": [...]}`` line (launches by path and by variant and
+14. distill: ``cli.distill --student-kind inceptionnext_pico.r2 --epochs 1
+    --no-figure`` on phase 6's flagship run at batch 64 (12 block launches,
+    the teacher's forward only, and 12 ``fused_ln_mlp`` launches a distill
+    step; 0 and 12 an eval batch; finite losses, the JAX package's
+    ``report.json`` keys, the student's ``best_model.pth`` scoring the val
+    split within 1e-6 of the trainer's best epoch, the teacher's tensors
+    bit-identical afterwards); one f32 distill step through both kernels
+    against both models plain (loss rtol 1e-6, gradients 1e-4 of their
+    largest entry); the teacher's in-step logits on an unaugmented batch
+    within 1e-5 of ``AlertScorer``'s f32 model (eval mode); ``cli.train``
+    for 1 epoch from a ``backbone_checkpoint`` written from the flagship's
+    backbone (equal before the first step) with ``generate_embeddings``
+    (``embeddings.csv``, 1,024 rows); ``run_training`` with a JSONL logger
+    (a line an epoch); ``extract_features`` on the card within 1e-5 of the
+    plain model (f32); distill steps/s at batch 64 f32 and at 1,024 with the
+    student in bf16 (teacher f32, then bf16), one step split into the
+    teacher's forward, AdamW and the rest (information only);
+15. a ``{"kernels": [...]}`` line (launches by path and by variant and
     width, the source of each variant, a pico and a nano forward's
     launches against their bound), alerts/s for each scorer and the daemon
     (information only), the per-width times in a table and in
     ``build/smoke_widths.json``;
-15. the card's name and power limit, then as the last line
+16. the card's name and power limit, then as the last line
     ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero and prints no result.  So does a host
@@ -931,7 +948,7 @@ def phase_train(state: dict) -> None:
     steps = TRAIN_ALERTS // TRAIN_BATCH
     evals = -(-VAL_ALERTS // TRAIN_BATCH)
     cli_args = ["--data-dir", data_dir, "--out-root", out_root, "--run-name", "smoke",
-                "--device", DEVICE]
+                "--no-figure", "--device", DEVICE]
     runs = []
     for epochs, extra in ((2, []), (3, ["--resume"])):
         path = os.path.join(tmp, f"config_{epochs}.json")
@@ -1274,7 +1291,7 @@ def _train_family(config, name, data_dir, out_root, run_name,
     _zero_kernel_counts()
     t0 = time.perf_counter()
     result = train_cli([path, "--data-dir", data_dir, "--out-root", out_root,
-                        "--run-name", run_name, "--device", DEVICE])
+                        "--run-name", run_name, "--no-figure", "--device", DEVICE])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = _kernel_counts()
@@ -2303,6 +2320,410 @@ def phase_val(state: dict) -> None:
     state["val"] = {"temperature": t, "secs": secs}
 
 
+# ------------------------------ distill ------------------------------
+
+DISTILL_STUDENT = "inceptionnext_pico.r2"
+DISTILL_BIG_BATCH = 1024
+DISTILL_FEATURE_ALERTS = 200     # extract_features on the card: 3 full batches + a ragged one
+
+
+def _backbone_equal(model, sd: dict, prefix: str) -> bool:
+    import torch
+    state = model.state_dict()
+    return all(torch.equal(state[prefix + k].cpu(), torch.as_tensor(v)) for k, v in sd.items())
+
+
+def _distill_step(config, teacher, batch, plain: bool = False):
+    """One distill step of a fresh student (seed 0, γ and statistics
+    randomised); (loss, {name: grad}, {kernel: launches})."""
+    import torch
+    from btsbot_tpu_torch.core.config import normalize_config
+    from btsbot_tpu_torch.engine.state import create_train_state
+    from btsbot_tpu_torch.engine.steps import make_train_step
+    from btsbot_tpu_torch.models.factory import build_model
+
+    config = normalize_config(config)
+    model = build_model(config, device=DEVICE, seed=0)
+    _randomise(model, seed=81)
+    st = create_train_state(config, model, steps_per_epoch=TRAIN_ALERTS // TRAIN_BATCH)
+    step = make_train_step(config, plain=plain, teacher=teacher)
+    torch.cuda.synchronize()
+    _zero_kernel_counts()
+    m = step(st, *batch)
+    torch.cuda.synchronize()
+    counts = _kernel_counts()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    return m["loss"].item(), grads, counts
+
+
+def _distill_split(config, teacher, batch, iters: int = 10) -> dict:
+    """ms of one distill step = the teacher's forward + AdamW + the student's
+    forward and backward with everything else, with CUDA events."""
+    import torch
+    from btsbot_tpu_torch.core.config import normalize_config
+    from btsbot_tpu_torch.engine.state import create_train_state
+    from btsbot_tpu_torch.engine.steps import make_train_step
+    from btsbot_tpu_torch.models.factory import build_model
+
+    config = normalize_config(config)
+    model = build_model(config, device=DEVICE, seed=0)
+    st = create_train_state(config, model, steps_per_epoch=TRAIN_ALERTS // TRAIN_BATCH)
+    step = make_train_step(config, teacher=teacher)
+    for _ in range(3):
+        step(st, *batch)
+    spans = {"teacher": [], "optimizer": []}
+    open_span = {}
+
+    def start(kind):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        open_span[kind] = ev
+
+    def stop(kind):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        spans[kind].append((open_span.pop(kind), ev))
+
+    hooks = [teacher.register_forward_pre_hook(lambda *_: start("teacher")),
+             teacher.register_forward_hook(lambda *_: stop("teacher"))]
+    opt_step = st.optimizer.step
+
+    def timed_step(*args, **kwargs):
+        start("optimizer")
+        out = opt_step(*args, **kwargs)
+        stop("optimizer")
+        return out
+
+    st.optimizer.step = timed_step
+    whole = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    try:
+        torch.cuda.synchronize()
+        whole[0].record()
+        for _ in range(iters):
+            step(st, *batch)
+        whole[1].record()
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+        del st.optimizer.step
+    check(len(spans["teacher"]) == len(spans["optimizer"]) == iters,
+          "one teacher forward and one AdamW step per timed distill step")
+    out = {k: sum(a.elapsed_time(b) for a, b in v) / iters for k, v in spans.items()}
+    out["step"] = whole[0].elapsed_time(whole[1]) / iters
+    out["student"] = out["step"] - out["teacher"] - out["optimizer"]
+    return out
+
+
+def _distill_kernels() -> dict:
+    """Both kernels against their plain versions at the shapes the distill
+    path gives them: the teacher's blocks (hidden 4C) in f32 at batch 64 and
+    at 1,024 in f32 and bf16, the student's ``fused_ln_mlp`` (hidden 2C) in
+    f32 at 64 and bf16 at 1,024, at the four pico stage shapes; {(kernel,
+    batch, dtype): a forward's 12 launches summed (ms, plain, bound)}."""
+    import torch
+    from btsbot_tpu_torch.ops.convnext_block import (
+        convnext_block_fused, convnext_block_reference, depthwise_conv7_reference)
+    from btsbot_tpu_torch.ops.ln_mlp import fused_ln_mlp, ln_mlp_reference
+
+    results = {}
+    for batch, dtype, kernels in ((TRAIN_BATCH, torch.float32, ("block", "ln_mlp")),
+                                  (DISTILL_BIG_BATCH, torch.float32, ("block",)),
+                                  (DISTILL_BIG_BATCH, torch.bfloat16, ("block", "ln_mlp"))):
+        dname, item = str(dtype).split(".")[-1], dtype.itemsize
+        for side, c, depth in PICO_STAGES:
+            m = batch * side * side
+            x, p = _block_inputs(side, c, dtype, seed=c, batch=batch)
+            where = {"shape": [batch, side, side, c], "depth": depth}
+            if "block" in kernels:
+                _check_kernel(f"distill teacher block C={c} batch {batch} {dname}",
+                              convnext_block_fused, convnext_block_reference, (x, *p), dname,
+                              (2 * m * c * item + sum(t.numel() for t in p) * item,
+                               16 * m * c * c + 2 * 49 * m * c),
+                              results, ("convnext_block_fused", batch, dname), where)
+            if "ln_mlp" in kernels:
+                q = _block_inputs(side, c, dtype, seed=c + 2, batch=1, ratio=2)[1][2:]
+                h = depthwise_conv7_reference(x, p[0], p[1]).reshape(-1, c)
+                _check_kernel(f"distill student fused_ln_mlp C={c} hidden 2C batch {batch} "
+                              f"{dname}", fused_ln_mlp, ln_mlp_reference,
+                              (h, x.reshape(-1, c), *q), dname,
+                              (3 * m * c * item + sum(t.numel() for t in q) * item,
+                               8 * m * c * c), results, ("fused_ln_mlp", batch, dname), where)
+            del x, p
+        torch.cuda.empty_cache()
+    totals = {}
+    for key, rows in results.items():
+        t_ops = sum(r["bound_ms"] * r["depth"] for r in rows if r["bound_by"] == "operations")
+        t_bytes = sum(r["bound_ms"] * r["depth"] for r in rows if r["bound_by"] == "bytes")
+        totals[key] = {k: sum(r[k] * r["depth"] for r in rows)
+                       for k in ("ms", "plain_ms", "bound_ms")}
+        totals[key].update(bound_by="operations" if t_ops > t_bytes else "bytes",
+                           max_abs_err=max(r["max_abs_err"] for r in rows))
+    return totals
+
+
+def phase_distill(state: dict) -> None:
+    """Distillation on the card: ``cli.distill`` from phase 6's flagship run
+    into ``inceptionnext_pico.r2`` (the teacher's 12 blocks in the block
+    kernel forward only, the student's 12 in ``fused_ln_mlp`` under
+    autograd), a kernel step against a plain one, the teacher's in-step
+    logits against ``AlertScorer``'s, ``cli.train`` from a backbone
+    checkpoint with embeddings, a JSONL logger, ``extract_features``, and
+    distill steps/s split by CUDA events."""
+    import numpy as np
+    import torch
+    from btsbot_tpu_torch.cli.distill import main as distill_main
+    from btsbot_tpu_torch.cli.train import main as train_cli
+    from btsbot_tpu_torch.core.config import normalize_config
+    from btsbot_tpu_torch.data.dataset import AlertDataset, load_split
+    from btsbot_tpu_torch.engine import distill as distill_mod
+    from btsbot_tpu_torch.engine import train as train_mod
+    from btsbot_tpu_torch.engine.checkpoint import load_model_checkpoint, load_run_dir
+    from btsbot_tpu_torch.engine.eval import predict_dataset
+    from btsbot_tpu_torch.engine.serve import AlertScorer
+    from btsbot_tpu_torch.engine.state import create_train_state
+    from btsbot_tpu_torch.engine.steps import make_train_step
+    from btsbot_tpu_torch.metrics.embeddings import extract_features, final_linear
+    from btsbot_tpu_torch.models.factory import build_model
+    from btsbot_tpu_torch.utils.logging import JsonlLogger
+
+    # ---- both kernels at the distill path's shapes against their plain versions
+    state["distill_kernels"] = _distill_kernels()
+    for (name, n_b, dname), t in state["distill_kernels"].items():
+        print(f"  distill path, {name} batch {n_b} {dname}: a forward's 12 launches "
+              f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f}, bound {t['bound_ms']:.4f} "
+              f"({t['bound_by']}), max|d|={t['max_abs_err']:.3g} on {state['gpu']}", flush=True)
+
+    run_dir = state["flagship_run"]
+    tmp, data_dir = _smoke_split(state)
+    t_cfg, t_weights = load_run_dir(run_dir)
+    s_cfg = distill_mod.student_config_from_teacher(t_cfg, DISTILL_STUDENT, epochs=1)
+    train = load_split(s_cfg, "train", data_dir)
+    val = load_split(s_cfg, "val", data_dir)
+
+    def batch_of(n):
+        return (torch.from_numpy(train.images[:n]).to(DEVICE),
+                torch.from_numpy(train.metadata[:n]).to(DEVICE),
+                torch.from_numpy(train.labels[:n]).to(DEVICE), train.pos_weight)
+
+    # ---- the entry point: cli.distill, the teacher captured as it is loaded
+    loaded = {}
+    load_teacher = distill_mod.load_teacher
+
+    def capture(*args, **kwargs):
+        model, config = load_teacher(*args, **kwargs)
+        loaded["model"] = model
+        loaded["before"] = {k: v.clone() for k, v in model.state_dict().items()}
+        return model, config
+
+    steps = TRAIN_ALERTS // TRAIN_BATCH
+    evals = -(-VAL_ALERTS // TRAIN_BATCH)
+    distill_mod.load_teacher = capture
+    try:
+        torch.cuda.synchronize()
+        _zero_kernel_counts()
+        t0 = time.perf_counter()
+        result = distill_main([run_dir, "--student-kind", DISTILL_STUDENT, "--data-dir",
+                               data_dir, "--out-root", os.path.join(tmp, "distill"),
+                               "--epochs", "1", "--no-figure", "--device", DEVICE])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _kernel_counts()
+    finally:
+        distill_mod.load_teacher = load_teacher
+    print(f"  cli.distill {DISTILL_STUDENT}: 1 epoch at batch {TRAIN_BATCH}, launches "
+          f"{counts}, {secs:.1f} s on {state['gpu']}", flush=True)
+    want = {"convnext_block_fused": 12 * steps, "fused_ln_mlp": 12 * (steps + evals)}
+    check(counts == want, f"12 block launches (teacher, forward only) a distill step and 0 "
+                          f"an eval batch; 12 fused_ln_mlp launches a distill step and an "
+                          f"eval batch ({steps} steps, {evals} eval batches: {want})")
+    hist = result["history"]
+    check(len(hist["train_loss"]) == 1 and all(
+        np.all(np.isfinite(hist[k])) for k in ("train_loss", "val_loss")),
+        f"finite distill losses: train {hist['train_loss']}, val {hist['val_loss']}")
+    with open(os.path.join(result["model_dir"], "report.json")) as f:
+        report = json.load(f)
+    check(set(report) == REPORT_KEYS and set(report["Training history"]) == HISTORY_KEYS
+          and set(report["val_summary"]) == SUMMARY_KEYS
+          and report["train_config"]["model_kind"] == DISTILL_STUDENT,
+          "the student's report.json has the JAX package's keys and the student's kind")
+    student = build_model(s_cfg, device=DEVICE)
+    student.load_state_dict(load_model_checkpoint(s_cfg, result["model_dir"]), strict=True)
+    _, scores = predict_dataset(student, s_cfg, val)
+    d = float(np.abs(scores - result["best_val_scores"]).max())
+    check(d <= 1e-6, f"the student's best_model.pth scores the val split within 1e-6 of the "
+                     f"trainer's best epoch (max|d|={d:.3g})")
+    teacher = loaded["model"]
+    check(not teacher.training and all(torch.equal(v, loaded["before"][k])
+                                       for k, v in teacher.state_dict().items()),
+          "the teacher's tensors (parameters and BatchNorm statistics) bit-identical after "
+          "the run, still in eval mode")
+    state["distill_launches"] = counts
+
+    # ---- one f32 distill step through both kernels and through both plain models
+    batch = batch_of(TRAIN_BATCH)
+    loss_k, grads_k, n_k = _distill_step(s_cfg, teacher, batch)
+    loss_p, grads_p, n_p = _distill_step(s_cfg, teacher, batch, plain=True)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    worst, worst_name = max(
+        ((grads_k[n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30), n)
+        for n, g in grads_p.items())
+    print(f"  one f32 distill step: loss {loss_k:.8f} kernels / {loss_p:.8f} plain (rel "
+          f"{rel:.3g}); worst gradient max|d|/max|g| = {worst:.3g} ({worst_name})", flush=True)
+    check(n_k == {"convnext_block_fused": 12, "fused_ln_mlp": 12}
+          and n_p == {"convnext_block_fused": 0, "fused_ln_mlp": 0},
+          "12 block + 12 fused_ln_mlp launches in a distill step (0 in the plain step)")
+    check(rel <= 1e-6, "distill-step loss through the kernels within rtol 1e-6 of plain")
+    check(worst <= 1e-4, "every student gradient within 1e-4 x its largest entry of plain")
+
+    # ---- the teacher's in-step logits (no augmentation) against AlertScorer's f32 model
+    seen = []
+    hook = teacher.register_forward_hook(lambda _m, _a, out: seen.append(out.detach()))
+    try:
+        _distill_step({**s_cfg, "data_aug_h_flip": 0, "data_aug_v_flip": 0, "data_aug_rot": 0},
+                      teacher, batch)
+    finally:
+        hook.remove()
+    scorer = AlertScorer(t_cfg, t_weights, batch_size=TRAIN_BATCH, dtype=torch.float32,
+                         device=DEVICE)
+    with torch.inference_mode():
+        want_logits = scorer.model(batch[0], batch[1]).reshape(-1)
+    d = (seen[0].reshape(-1) - want_logits).abs().max().item()
+    check(len(seen) == 1 and d <= 1e-5,
+          f"the teacher's in-step logits within 1e-5 of AlertScorer's f32 logits on an "
+          f"unaugmented batch (max|d|={d:.3g}): eval mode")
+
+    # ---- cli.train from a backbone checkpoint written from a port model, with embeddings
+    prefix = "convnext_backbone."
+    backbone = {k[len(prefix):]: v for k, v in t_weights.items()
+                if k.startswith((prefix + "stem.", prefix + "stages."))}
+    ckpt = os.path.join(tmp, "backbone.pth")
+    torch.save(backbone, ckpt)
+    b_cfg = _train_config(epochs=1, backbone_checkpoint=ckpt, generate_embeddings=True)
+    path = os.path.join(tmp, "backbone_config.json")
+    with open(path, "w") as f:
+        json.dump(b_cfg, f)
+    seeded = []
+    create_train_state = train_mod.create_train_state
+
+    def capture_state(config, model, *args, **kwargs):
+        seeded.append(_backbone_equal(model, backbone, prefix))
+        return create_train_state(config, model, *args, **kwargs)
+
+    train_mod.create_train_state = capture_state
+    try:
+        torch.cuda.synchronize()
+        _zero_kernel_counts()
+        t0 = time.perf_counter()
+        b_result = train_cli([path, "--data-dir", data_dir, "--out-root",
+                              os.path.join(tmp, "backbone"), "--run-name", "backbone",
+                              "--no-figure", "--device", DEVICE])
+        torch.cuda.synchronize()
+        b_secs = time.perf_counter() - t0
+        b_counts = _kernel_counts()
+    finally:
+        train_mod.create_train_state = create_train_state
+    check(seeded == [True], "cli.train's model holds the checkpoint's backbone before its "
+                            "first step")
+    with open(os.path.join(b_result["model_dir"], "embeddings.csv"), newline="") as f:
+        rows = list(csv.reader(f))
+    emb = np.asarray(rows[1:], dtype=np.float64)
+    check(rows[0] == ["umap_emb_1", "umap_emb_2", "candid"] and emb.shape == (VAL_ALERTS, 3)
+          and np.isfinite(emb).all(),
+          f"embeddings.csv holds the JAX columns and {VAL_ALERTS} finite rows "
+          f"(cli.train {b_secs:.1f} s, launches {b_counts})")
+    check(b_counts["convnext_block_fused"] == 12 * (steps + 2 * evals),
+          "12 block launches a train step, an eval batch and an embeddings batch")
+
+    # ---- the experiment logger: one JSONL line an epoch, then the summary
+    log_path = os.path.join(tmp, "log.jsonl")
+    train_mod.run_training(normalize_config(_train_config(epochs=2)), data_dir=data_dir,
+                           out_root=os.path.join(tmp, "logged"), run_name="logged",
+                           logger=JsonlLogger(log_path), device=DEVICE, log=lambda _m: None)
+    with open(log_path) as f:
+        lines = [json.loads(line) for line in f]
+    check([x["step"] for x in lines[:-1]] == [0, 1] and "ROC_AUC" in lines[-1]["summary"],
+          "the JSONL logger wrote one line an epoch (2) and the summary's ROC_AUC")
+
+    # ---- extract_features on the card against the plain model (f32)
+    n = DISTILL_FEATURE_ALERTS
+    sub = AlertDataset(val.labels[:n], val.images[:n], val.metadata[:n])
+    model = build_model(t_cfg, device=DEVICE)
+    model.load_state_dict(t_weights)
+    _zero_kernel_counts()
+    feats = extract_features(model, t_cfg, sub)
+    f_counts = _kernel_counts()
+    plain = []
+    hook = final_linear(model).register_forward_pre_hook(lambda _m, a: plain.append(a[0]))
+    try:
+        with torch.no_grad():
+            for s in range(0, n, TRAIN_BATCH):
+                model(torch.from_numpy(sub.images[s:s + TRAIN_BATCH]).to(DEVICE),
+                      torch.from_numpy(sub.metadata[s:s + TRAIN_BATCH]).to(DEVICE), plain=True)
+    finally:
+        hook.remove()
+    plain = torch.cat(plain).float().cpu().numpy()
+    d = float(np.abs(feats - plain).max())
+    scale = max(1.0, float(np.abs(plain).max()))
+    check(feats.shape == plain.shape == (n, final_linear(model).in_features)
+          and d <= 1e-5 * scale and f_counts["convnext_block_fused"] == 12 * -(-n // TRAIN_BATCH),
+          f"extract_features on the card within 1e-5 x max(1, max|f|) of the plain model "
+          f"(max|d|={d:.3g}, max|f|={scale:.3g}), 12 block launches a batch")
+
+    # ---- speed (information only): the student's own step before and after
+    # the distill steps, which run the two teacher types in turns at batch
+    # 1,024 (f32, bf16, bf16, f32)
+    alone = {}
+
+    def time_alone():
+        for n_b, s_dtype in ((TRAIN_BATCH, "float32"), (DISTILL_BIG_BATCH, "bfloat16")):
+            cfg = normalize_config({**s_cfg, "compute_dtype": s_dtype})
+            st = create_train_state(cfg, build_model(cfg, device=DEVICE, seed=0),
+                                    steps_per_epoch=steps)
+            step, b = make_train_step(cfg), batch_of(n_b)
+            ms = time_ms(lambda: step(st, *b))
+            alone.setdefault((n_b, s_dtype), []).append(ms)
+            print(f"  {DISTILL_STUDENT} train step alone, batch {n_b} {s_dtype}: "
+                  f"{ms:.3f} ms on {state['gpu']}", flush=True)
+            if n_b == DISTILL_BIG_BATCH and len(alone[(n_b, s_dtype)]) == 2:
+                _profile(lambda: step(st, *b), f"{DISTILL_STUDENT} step alone, batch "
+                                               f"{n_b} {s_dtype}")
+
+    time_alone()
+    splits = []
+    teachers = {"float32": teacher, "bfloat16": distill_mod.load_teacher(
+        run_dir, dtype=torch.bfloat16, device=DEVICE)[0]}
+    for n_b, s_dtype, t_name in ((TRAIN_BATCH, "float32", "float32"),
+                                 (DISTILL_BIG_BATCH, "bfloat16", "float32"),
+                                 (DISTILL_BIG_BATCH, "bfloat16", "bfloat16"),
+                                 (DISTILL_BIG_BATCH, "bfloat16", "bfloat16"),
+                                 (DISTILL_BIG_BATCH, "bfloat16", "float32")):
+        sp = _distill_split({**s_cfg, "compute_dtype": s_dtype}, teachers[t_name],
+                            batch_of(n_b))
+        splits.append(((n_b, s_dtype, t_name), sp))
+        print(f"  distill step batch {n_b}, student {s_dtype}, teacher {t_name}: "
+              f"{sp['step']:.3f} ms = {1e3 / sp['step']:.1f} steps/s "
+              f"({n_b * 1e3 / sp['step']:.0f} alerts/s) = teacher forward {sp['teacher']:.3f} "
+              f"+ student forward, backward and the rest {sp['student']:.3f} + AdamW "
+              f"{sp['optimizer']:.3f} on {state['gpu']}", flush=True)
+    time_alone()
+    for n_b, s_dtype, t_name in ((TRAIN_BATCH, "float32", "float32"),
+                                 (DISTILL_BIG_BATCH, "bfloat16", "float32"),
+                                 (DISTILL_BIG_BATCH, "bfloat16", "bfloat16")):
+        cfg = normalize_config({**s_cfg, "compute_dtype": s_dtype})
+        st = create_train_state(cfg, build_model(cfg, device=DEVICE, seed=0),
+                                steps_per_epoch=steps)
+        step, b = make_train_step(cfg, teacher=teachers[t_name]), batch_of(n_b)
+        try:
+            _profile(lambda: step(st, *b), f"distill step batch {n_b}, student {s_dtype}, "
+                                           f"teacher {t_name}")
+        except Exception as e:  # noqa: BLE001 — information only
+            print(f"  profiler failed ({e!r}); not measured", flush=True)
+        del st
+    state["distill"] = {"cli_s": secs, "splits": splits, "backbone_cli_s": b_secs,
+                        "alone": alone}
+
+
 # ------------------------------ phase 10 ------------------------------
 
 def _kernel_entry(name, source, replaces, launches, rows):
@@ -2332,6 +2753,16 @@ def phase_report(state: dict) -> None:
     inc = state["inceptionnext"]
     ln_mlp_paths = {"fast_mm_convnext_logits": state["launches_fast"]["fused_ln_mlp"],
                     **inc["launches"]}
+    # this slice's path: cli.distill, the teacher's blocks forward only
+    paths["cli.distill teacher (mm_ConvNeXt-pico, forward only)"] = \
+        state["distill_launches"]["convnext_block_fused"]
+    ln_mlp_paths[f"cli.distill student ({DISTILL_STUDENT}, train + eval)"] = \
+        state["distill_launches"]["fused_ln_mlp"]
+    distill_shapes = {}
+    for (name, n_b, dname), t in state["distill_kernels"].items():
+        distill_shapes.setdefault(name, {})[f"batch {n_b} {dname}"] = dict(
+            t, per=f"a forward's 12 launches at the pico stage shapes, batch {n_b}, {dname}"
+                    + (", hidden 2C" if name == "fused_ln_mlp" else ""))
     kernels = [
         _kernel_entry("convnext_block_fused", "btsbot_tpu_torch/csrc/convnext_block.cu",
                       "btsbot_tpu/ops/pallas_convnext.py:147", sum(paths.values()),
@@ -2346,6 +2777,8 @@ def phase_report(state: dict) -> None:
     kernels[0]["launches_train"] = state["launches_train"] + fam["train_launches"]
     kernels[1]["launches_by_path"] = ln_mlp_paths
     kernels[1]["launches_train"] = inc["train_launches"]
+    for entry in kernels:
+        entry["distill_shapes"] = distill_shapes[entry["name"]]
     r2 = _kernel_entry("fused_ln_mlp", "", "", 0, res["fused_ln_mlp_r2"])
     kernels[1]["hidden_2c"] = {k: r2[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                   "max_abs_err")}
@@ -2466,6 +2899,16 @@ def _report_daemon(state: dict) -> None:
               f"{st['batches']} batches on {state['gpu']}", flush=True)
     print(f"  cli.val --calibrate: temperature {state['val']['temperature']}, "
           f"{state['val']['secs']:.1f} s on {state['gpu']}", flush=True)
+    dist = state["distill"]
+    print(f"  cli.distill ({DISTILL_STUDENT}, 1 epoch at batch {TRAIN_BATCH}) "
+          f"{dist['cli_s']:.1f} s; cli.train from a backbone checkpoint with embeddings "
+          f"{dist['backbone_cli_s']:.1f} s on {state['gpu']}", flush=True)
+    for (n, s_dtype, t_dtype), sp in dist["splits"]:
+        print(f"  distill step batch {n} student {s_dtype} teacher {t_dtype}: "
+              f"{1e3 / sp['step']:.1f} steps/s ({sp['step']:.3f} ms: teacher "
+              f"{sp['teacher']:.3f}, student + rest {sp['student']:.3f}, AdamW "
+              f"{sp['optimizer']:.3f}; the student's step alone "
+              f"{' / '.join(f'{ms:.3f}' for ms in dist['alone'][(n, s_dtype)])})", flush=True)
 
 
 PHASES = [("setup", phase_setup), ("kernels", phase_kernels),
@@ -2474,7 +2917,8 @@ PHASES = [("setup", phase_setup), ("kernels", phase_kernels),
           ("families", phase_families), ("maxvit", phase_maxvit),
           ("inceptionnext", phase_inceptionnext), ("widths", phase_widths),
           ("nano", phase_nano),
-          ("daemon", phase_daemon), ("val", phase_val), ("report", phase_report)]
+          ("daemon", phase_daemon), ("val", phase_val), ("distill", phase_distill),
+          ("report", phase_report)]
 
 
 def main() -> int:

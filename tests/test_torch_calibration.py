@@ -169,7 +169,21 @@ def test_val_run_id_uses_the_injected_api(run_dir, tmp_path, capsys):
     assert "calibration" not in summary and "roc_auc" in summary
 
 
-def test_val_figure_is_not_ported(run_dir):
+def test_val_figure_is_not_ported(run_dir, monkeypatch):
+    """The figure is ported now: ``--figure`` draws ``val_diagnostics.pdf``
+    beside perf.json, and without matplotlib it raises ImportError naming
+    ``--no-figure`` before it evaluates anything."""
+    import importlib.util
     model_dir, data_dir = run_dir
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    pdf = os.path.join(model_dir, "val_diagnostics.pdf")
+    summary = val_main([model_dir, "--data-dir", data_dir, "--figure", "--device", "cpu"])
+    assert "fig" not in summary and "roc_auc" in summary
+    with open(pdf, "rb") as f:
+        assert f.read(5) == b"%PDF-"
+    os.remove(pdf)
+    find_spec = importlib.util.find_spec
+    monkeypatch.setattr(importlib.util, "find_spec",
+                        lambda name, *a: None if name == "matplotlib" else find_spec(name, *a))
+    with pytest.raises(ImportError, match="--no-figure"):
         val_main([model_dir, "--data-dir", data_dir, "--figure", "--device", "cpu"])
+    assert not os.path.exists(pdf)

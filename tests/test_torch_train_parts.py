@@ -313,8 +313,11 @@ def test_diagnostic_summary_matches_jax():
     got = diagnostic_summary(cand, preds, labels)
     want = jax_diagnostic_summary(pd.DataFrame(cand), preds, labels)
     assert json.dumps(got, sort_keys=True) == json.dumps(want, sort_keys=True)  # NaN too
-    with pytest.raises(NotImplementedError, match="figure"):
-        diagnostic_summary(cand, preds, labels, make_figure=True)
+    # with the figure (ported): the same summary beside a 4 x 3 grid of panels
+    drawn = diagnostic_summary(cand, preds, labels, make_figure=True)
+    fig = drawn.pop("fig")
+    assert len([a for a in fig.axes if a.get_label() != "<colorbar>"]) == 12
+    assert json.dumps(drawn, sort_keys=True) == json.dumps(want, sort_keys=True)
 
 
 def test_val_cuts_filter_and_nan_metadata_follow_jax(tmp_path):
