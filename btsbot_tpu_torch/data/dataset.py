@@ -12,6 +12,14 @@ package:
   NaN metadata is an error;
 * ``iterate_batches`` shuffles with ``np.random.default_rng(seed)``, so the
   two packages see the same batches for the same seed.
+
+``write_candidates`` writes such a table back in pandas' ``to_csv(index=False)``
+format (floats as numpy's shortest repr, NaN as an empty field, bools as
+True / False, ``\n`` line ends), so the JAX package's ``pd.read_csv`` and
+``read_candidates`` read it back alike.  ``take_rows``, ``concat_rows``,
+``group_rows`` and ``sort_order`` are the row
+operations the data layer (``data.splits``, ``data.alerts``,
+``data.query``) needs of such a table.
 """
 
 from __future__ import annotations
@@ -88,8 +96,85 @@ def read_candidates(path: str) -> dict[str, np.ndarray]:
     return {name: _column(list(col)) for name, col in zip(names, cols)}
 
 
-def _take(cand: dict, index) -> dict:
-    return {k: v[index] for k, v in cand.items()}
+def n_rows(cand: dict) -> int:
+    return len(next(iter(cand.values()))) if cand else 0
+
+
+def take_rows(cand: dict, index) -> dict:
+    """The rows ``index`` (a mask or positions) of every column."""
+    return {k: np.asarray(v)[index] for k, v in cand.items()}
+
+
+def concat_rows(parts: list[dict]) -> dict:
+    """Tables stacked row-wise (``pd.concat``): the union of their columns
+    in order of first appearance; a column a part lacks is NaN there, which
+    makes a numeric column float64 and any other an object column, as in
+    pandas."""
+    names: list[str] = []
+    for part in parts:
+        names += [k for k in part if k not in names]
+    out = {}
+    for name in names:
+        cols = [np.asarray(part[name]) if name in part else None for part in parts]
+        if all(c is not None for c in cols):
+            out[name] = np.concatenate(cols)
+            continue
+        dtype = np.float64 if all(c.dtype.kind in "iuf" for c in cols if c is not None) \
+            else object
+        out[name] = np.concatenate([
+            c.astype(dtype) if c is not None else np.full(n_rows(part), np.nan, dtype=dtype)
+            for c, part in zip(cols, parts)])
+    return out
+
+
+def group_rows(values) -> tuple[np.ndarray, list[np.ndarray]]:
+    """(distinct values in order of first appearance, each one's row
+    positions in row order)."""
+    values = np.asarray(values)
+    uniq, first, inverse = np.unique(values, return_index=True, return_inverse=True)
+    rows = np.argsort(inverse, kind="stable")
+    groups = np.split(rows, np.cumsum(np.bincount(inverse, minlength=len(uniq)))[:-1])
+    order = np.argsort(first)
+    return uniq[order], [groups[g] for g in order]
+
+
+def sort_order(values, ascending: bool = True) -> np.ndarray:
+    """Row order of pandas' ``sort_values`` on one float column: numpy's
+    default (quicksort) argsort of the non-NaN values, NaNs last.  Ties fall
+    as numpy's quicksort leaves them, exactly as in the JAX package on the
+    same numpy."""
+    values = np.asarray(values, dtype=np.float64)
+    nan = np.isnan(values)
+    idx, keep = np.arange(len(values)), values[~nan]
+    idx_keep = idx[~nan]
+    if not ascending:
+        keep, idx_keep = keep[::-1], idx_keep[::-1]
+    order = idx_keep[keep.argsort(kind="quicksort")]
+    if not ascending:
+        order = order[::-1]
+    return np.concatenate([order, idx[nan]])
+
+
+def _csv_field(col: np.ndarray) -> list[str]:
+    if col.dtype.kind == "f":
+        text = col.astype(str)
+        text[np.isnan(col)] = ""
+        return text.tolist()
+    if col.dtype.kind in "biuU":
+        return col.astype(str).tolist()
+    return ["" if v is None or (isinstance(v, float) and np.isnan(v)) else str(v)
+            for v in col.tolist()]
+
+
+def write_candidates(cand: dict, path: str) -> None:
+    """Write a candidate table as pandas' ``to_csv(path, index=False)``
+    would."""
+    names = list(cand)
+    cols = [_csv_field(np.asarray(cand[k])) for k in names]
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f, lineterminator="\n")
+        writer.writerow(names)
+        writer.writerows(zip(*cols))
 
 
 def load_split(
@@ -112,7 +197,7 @@ def load_split(
         if drop_nan_triplets and np.any(np.isnan(images)):
             good = ~np.isnan(images).any(axis=(1, 2, 3))
             images = images[good]
-            cand = _take(cand, good)
+            cand = take_rows(cand, good)
     labels = cand["label"].astype(np.float32)
 
     metadata = None
@@ -139,7 +224,7 @@ def filter_dataset(dataset: AlertDataset, mask: np.ndarray) -> AlertDataset:
         labels=dataset.labels[mask],
         images=None if dataset.images is None else dataset.images[mask],
         metadata=None if dataset.metadata is None else dataset.metadata[mask],
-        candidates=None if cand is None else _take(cand, mask),
+        candidates=None if cand is None else take_rows(cand, mask),
     )
 
 

@@ -7,7 +7,9 @@ the channel axis), with the JAX package's semantics:
 * per-cutout (per sample, per channel) L2 / Frobenius normalization;
 * corruption: non-finite median of the raw cutout, an all-zero cutout after
   cleaning, or a float32 sum of squares that overflows (a few ±inf pixels
-  survive the cleanup as ±3.4e38 and normalise to zeros in the reference).
+  survive the cleanup as ±3.4e38 and normalise to zeros in the reference);
+* center crop + renormalise (``crop_triplets``) and the NaN-row filter of
+  training (``nan_row_mask``).
 
 ``torch.nanmedian`` returns the lower of the two middle values for an even
 count where ``jnp.nanmedian`` averages them; only the median's finiteness is
@@ -52,3 +54,21 @@ def preprocess_triplets(raw_triplets: torch.Tensor, normalize: bool = True):
     if normalize:
         out = l2_normalize_cutouts(out)
     return out, drop
+
+
+def center_crop(triplets: torch.Tensor, crop_to_size: int) -> torch.Tensor:
+    """Center crop on H/W with the reference's margin convention
+    ``margin = (63 - size) // 2``."""
+    margin = (triplets.shape[1] - crop_to_size) // 2
+    return triplets[:, margin:margin + crop_to_size, margin:margin + crop_to_size, :]
+
+
+def crop_triplets(triplets: torch.Tensor, crop_to_size: int) -> torch.Tensor:
+    """Center crop each cutout, then renormalise it by its Frobenius norm."""
+    return l2_normalize_cutouts(center_crop(triplets, crop_to_size))
+
+
+def nan_row_mask(triplets: torch.Tensor) -> torch.Tensor:
+    """(N,) bool: True where any pixel of the alert's triplet is NaN (the
+    training-time row filter)."""
+    return torch.isnan(triplets).flatten(1).any(dim=1)

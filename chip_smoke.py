@@ -129,12 +129,30 @@ convnext_pico, 63×63×3 triplets + 25 metadata features) on the card:
     plain model (f32); distill steps/s at batch 64 f32 and at 1,024 with the
     student in bf16 (teacher f32, then bf16), one step split into the
     teacher's forward, AdamW and the rest (information only);
-15. a ``{"kernels": [...]}`` line (launches by path and by variant and
+15. lifecycle, the dataset-to-deployment path at the flagship's full
+    width: four source sets (trues, dims, vars, rejects; 400 objects, about
+    3,200 alerts, every 150th with an all-NaN science stamp) through
+    ``download_training_data`` with a client that replays the packets (the
+    ingest on the card: corrupt alerts dropped, unit-norm float64
+    triplets), ``cli.dataset build``, ``cli.train --epochs 1 --no-figure``
+    at batch 64 on the built split (12 block launches a step and an eval
+    batch), ``cli.export`` (ONNX verified on the card's f32 forward with
+    TF32 off, ``close: true``, 12 block launches; then the same artifact at
+    256 alerts; then ``--format torch``, whose ``pytorch_model.bin`` loads
+    ``strict=True`` and scores the val split within 1e-6 of the run's best
+    epoch), ``cli.publish --no-upload`` and ``load_model_dir`` (the same
+    scores), an ``inceptionnext_pico`` mm_ConvNeXt exported and verified
+    through 12 ``fused_ln_mlp`` launches, and ``center_crop`` /
+    ``crop_triplets`` / ``nan_row_mask`` on the card against numpy; each
+    CLI's seconds, the ONNX file's size, the numpy evaluator's alerts/s
+    against the card's f32 forward on the same 256 alerts (information
+    only);
+16. a ``{"kernels": [...]}`` line (launches by path and by variant and
     width, the source of each variant, a pico and a nano forward's
     launches against their bound), alerts/s for each scorer and the daemon
     (information only), the per-width times in a table and in
     ``build/smoke_widths.json``;
-16. the card's name and power limit, then as the last line
+17. the card's name and power limit, then as the last line
     ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero and prints no result.  So does a host
@@ -2724,7 +2742,309 @@ def phase_distill(state: dict) -> None:
                         "alone": alone}
 
 
-# ------------------------------ phase 10 ------------------------------
+# ------------------------------ phase 15 ------------------------------
+
+# the dataset-to-deployment path: four source sets of the reference's
+# training set, each LIFECYCLE_OBJECTS objects with 3-13 alerts (about 3,200
+# alerts in all), through the port's acquisition, split, train, export and
+# publish entry points
+LIFECYCLE_SETS = {"trues": (16.5, 18.4), "dims": (18.6, 19.8), "vars": (15.5, 18.5),
+                  "rejects": (17.0, 19.5)}                 # peak magnitude range
+LIFECYCLE_OBJECTS = 100
+LIFECYCLE_CORRUPT_EVERY = 150     # every 150th packet's science stamp is all NaN
+LIFECYCLE_VERIFY = 256            # the second ONNX verification's batch
+LIFECYCLE_CROP = 47
+LIFECYCLE_INCEPTION = "inceptionnext_pico"
+
+
+class _ReplayKowalski:
+    """Kowalski stand-in: replays packets by object and programid (a copy of
+    each, as a query returns new dicts) and previous candidates of the aux
+    catalog."""
+
+    def __init__(self, packets: dict, prv: dict):
+        self.packets, self.prv = packets, prv
+
+    def query(self, q):
+        flt = q["query"]["filter"]
+        if q["query"]["catalog"] == "ZTF_alerts":
+            data = [dict(p) for p in self.packets.get(flt["objectId"], [])
+                    if p["candidate"]["programid"] == flt["candidate.programid"]]
+        else:
+            data = [{"prv_candidates": self.prv[flt["_id"]]}] if flt["_id"] in self.prv else []
+        return {"kowalski": {"data": data}}
+
+
+def _lifecycle_set(set_name: str, seed: int):
+    """({objectId: packets}, {objectId: previous candidates}, corrupt count)
+    of one source set: the cutouts of an object (a source in the science and
+    difference stamps of trues, noise elsewhere) shared by its alerts, a
+    light curve around a peak in the set's magnitude range, and the flagship's
+    metadata fields."""
+    import numpy as np
+    from btsbot_tpu_torch.data.fits import write_fits_image
+
+    rng = np.random.default_rng(seed)
+    lo, hi = LIFECYCLE_SETS[set_name]
+    yy, xx = np.mgrid[:63, :63]
+    bump = np.exp(-((yy - 31) ** 2 + (xx - 31) ** 2) / 8.0)
+    nan_blob = gzip.compress(write_fits_image(np.full((63, 63), np.nan, np.float32)), 1)
+    packets, prv, corrupt, count = {}, {}, 0, 0
+    for o in range(LIFECYCLE_OBJECTS):
+        oid = f"ZTF24{set_name[:3]}{o:05d}"
+        src = 6.0 * bump * (set_name == "trues")
+        stamps = [gzip.compress(write_fits_image(
+            (rng.normal(size=(63, 63)) + s).astype(np.float32)), 1)
+            for s in (src, 0.0, src)]
+        n, peak = int(rng.integers(3, 14)), rng.uniform(lo, hi)
+        at_peak, jd0 = int(rng.integers(0, n)), 2459500.5 + 0.37 * o
+        ra, dec = rng.uniform(0, 360), rng.uniform(-30, 80)
+        alerts_ = []
+        for i in range(n):
+            sci = stamps[0]
+            if count % LIFECYCLE_CORRUPT_EVERY == LIFECYCLE_CORRUPT_EVERY - 1:
+                sci, corrupt = nan_blob, corrupt + 1
+            count += 1
+            cand = {
+                "candid": int(seed * 10 ** 7 + o * 100 + i), "programid": 1 + i % 2,
+                "fid": 1 + i % 2, "isdiffpos": "t" if rng.random() < 0.95 else "f",
+                "jd": jd0 + 1.5 * i, "jdstarthist": jd0 - float(rng.uniform(0, 5)),
+                "magpsf": float(peak + 0.08 * abs(i - at_peak) + rng.normal(0, 0.02)),
+                "sigmapsf": float(rng.uniform(0.05, 0.2)),
+                "diffmaglim": float(rng.uniform(20, 21)), "ra": ra, "dec": dec,
+                "ndethist": i + 1, "ncovhist": i + 1 + int(rng.integers(0, 9)),
+                "nmtchps": int(rng.integers(0, 20)), "drb": float(rng.uniform(0.5, 1)),
+                **{k: float(rng.normal()) for k in ("fwhm", "chipsf", "sky", "scorr",
+                                                    "chinr", "sharpnr")},
+                "sgscore1": float(rng.uniform(-0.05, 1)), "distpsnr1": float(rng.uniform(0, 20)),
+                "sgscore2": float(rng.uniform(-1, 1)), "distpsnr2": float(rng.uniform(0, 30)),
+            }
+            alerts_.append({"objectId": oid, "candidate": cand,
+                            "classifications": {"acai_h": float(rng.uniform())},
+                            "cutoutScience": {"stampData": sci},
+                            "cutoutTemplate": {"stampData": stamps[1]},
+                            "cutoutDifference": {"stampData": stamps[2]}})
+        packets[oid] = alerts_
+        if o % 3 == 0:
+            prv[oid] = [{"jd": jd0 - 3.0, "diffmaglim": 20.2},
+                        {"jd": jd0 - 1.0, "diffmaglim": 20.6, "magpsf": None},
+                        {"jd": jd0 - 0.5, "diffmaglim": 19.9, "magpsf": 19.5}]
+    return packets, prv, corrupt
+
+
+def _new_drb(triplets):
+    """The ``drb_fn`` hook (the reference re-scores with braai): a squashed
+    central flux of the difference stamp."""
+    import numpy as np
+    return 1.0 / (1.0 + np.exp(-100.0 * triplets[:, 28:35, 28:35, 2].mean(axis=(1, 2))))
+
+
+def _timed_cli(name: str, fn, argv: list, secs: dict):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(argv)
+    torch.cuda.synchronize()
+    secs[name] = time.perf_counter() - t0
+    return out
+
+
+def phase_lifecycle(state: dict) -> None:
+    """The dataset-to-deployment path on the card: acquisition through a
+    replaying Kowalski client (ingest on the card), ``cli.dataset build``,
+    ``cli.train``, ``cli.export`` (ONNX verified on the card at 16 and 256
+    alerts, and the torch checkpoint), ``cli.publish --no-upload`` and
+    ``load_model_dir``; an ``inceptionnext_pico`` export verified through
+    ``fused_ln_mlp``; the crop ops against numpy."""
+    import numpy as np
+    import torch
+    from btsbot_tpu_torch.cli.dataset import main as dataset_cli
+    from btsbot_tpu_torch.cli.export import _verification_inputs
+    from btsbot_tpu_torch.cli.export import main as export_cli
+    from btsbot_tpu_torch.cli.publish import main as publish_cli
+    from btsbot_tpu_torch.cli.train import main as train_cli
+    from btsbot_tpu_torch.core.config import normalize_config
+    from btsbot_tpu_torch.data.dataset import load_split, read_candidates
+    from btsbot_tpu_torch.data.query.kowalski import download_training_data
+    from btsbot_tpu_torch.engine.checkpoint import load_torch_checkpoint
+    from btsbot_tpu_torch.engine.eval import predict_dataset
+    from btsbot_tpu_torch.interop.hf import load_model_dir
+    from btsbot_tpu_torch.interop.onnx_export import (export_onnx, float32_exact,
+                                                      verify_onnx)
+    from btsbot_tpu_torch.interop.onnx_numpy import run_model
+    from btsbot_tpu_torch.models.factory import build_model
+    from btsbot_tpu_torch.ops.preprocess import center_crop, crop_triplets, nan_row_mask
+
+    tmp, _ = _smoke_split(state)
+    root = os.path.join(tmp, "lifecycle")
+    base, data, models = (os.path.join(root, d) for d in ("base_data", "data", "models"))
+    secs, launches = {}, {}
+
+    def counted(name, fn):
+        _zero_kernel_counts()
+        out = fn()
+        launches[name] = _kernel_counts()
+        return out
+
+    # ---- acquisition: four source sets through download_training_data
+    t0 = time.perf_counter()
+    sets = {name: _lifecycle_set(name, seed=20 + i) for i, name in enumerate(LIFECYCLE_SETS)}
+    n_alerts = sum(len(p) for ps, _, _ in sets.values() for p in ps.values())
+    n_corrupt = sum(c for _, _, c in sets.values())
+    print(f"  {len(sets) * LIFECYCLE_OBJECTS} objects, {n_alerts} alert packets "
+          f"({n_corrupt} with an all-NaN science stamp) made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.synchronize()
+    _zero_kernel_counts()
+    path_t0 = time.perf_counter()
+    for name, (packets, prv, corrupt) in sets.items():
+        t0 = time.perf_counter()
+        counted(f"download {name}", lambda: download_training_data(
+            {"ZTFID": np.asarray(list(packets))}, name, 1 if name == "trues" else 0,
+            client=_ReplayKowalski(packets, prv), out_dir=base, drb_fn=_new_drb,
+            device=DEVICE))
+        secs[f"download {name}"] = time.perf_counter() - t0
+        trips = np.load(os.path.join(base, f"{name}_triplets.npy"))
+        cand = read_candidates(os.path.join(base, f"{name}_candidates.csv"))
+        n = sum(len(p) for p in packets.values())
+        check(trips.shape == (n - corrupt, 63, 63, 3) and trips.dtype == np.float64
+              and np.isfinite(trips).all() and len(cand["objectId"]) == n - corrupt
+              and np.allclose(np.linalg.norm(trips, axis=(1, 2)), 1.0, atol=1e-5),
+              f"{name}: {n} packets ingested on the card, {corrupt} corrupt dropped, "
+              f"unit-norm float64 triplets ({secs[f'download {name}']:.1f} s)")
+    check(all(v == {"convnext_block_fused": 0, "fused_ln_mlp": 0}
+              for k, v in launches.items() if k.startswith("download")),
+          "the ingest runs no block kernel")
+
+    # ---- cli.dataset build
+    counted("cli.dataset", lambda: _timed_cli(
+        "cli.dataset build", dataset_cli,
+        ["build", "--version", "vlc", "--base-dir", base, "--out-dir", data], secs))
+    config = normalize_config(_train_config(train_data_version="vlc", epochs=1))
+    train, val = load_split(config, "train", data), load_split(config, "val", data)
+    check(len(train) > 20 * TRAIN_BATCH and len(val) > TRAIN_BATCH and 0 < train.num_pos
+          < len(train) and np.isfinite(train.metadata).all(),
+          f"cli.dataset build: {len(train)} train / {len(val)} val alerts (N100), both "
+          f"labels, finite metadata ({secs['cli.dataset build']:.1f} s)")
+
+    # ---- cli.train, 1 epoch at batch 64
+    cfg_path = os.path.join(root, "config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(dict(config), f)
+    result = counted("cli.train", lambda: _timed_cli(
+        "cli.train", train_cli, [cfg_path, "--data-dir", data, "--out-root", models,
+                                 "--run-name", "lifecycle", "--no-figure", "--device",
+                                 DEVICE], secs))
+    run = result["model_dir"]
+    steps, evals = len(train) // TRAIN_BATCH, -(-len(val) // TRAIN_BATCH)
+    want = 12 * (steps + evals)
+    check(launches["cli.train"]["convnext_block_fused"] == want
+          and np.all(np.isfinite(result["history"]["train_loss"])),
+          f"cli.train 1 epoch: {want} block launches (12 x ({steps} steps + {evals} eval "
+          f"batches)), finite losses ({secs['cli.train']:.1f} s)")
+
+    # ---- cli.export: ONNX verified on the card, then the torch checkpoint
+    counted("cli.export onnx", lambda: _timed_cli("cli.export onnx", export_cli,
+                                                  [run, "--device", DEVICE], secs))
+    onnx_path = os.path.join(run, "model.onnx")
+    with open(os.path.join(run, "model.verification.json")) as f:
+        report = json.load(f)
+    onnx_mb = os.path.getsize(onnx_path) / 2 ** 20
+    check(report["close"] and report["n"] == 16
+          and launches["cli.export onnx"]["convnext_block_fused"] == 12,
+          f"cli.export: ONNX ({onnx_mb:.2f} MiB) verified against the card's f32 forward "
+          f"(12 block launches), close: true, max|d| = {report['max_diff']:.3g} "
+          f"({secs['cli.export onnx']:.1f} s)")
+    sd = load_torch_checkpoint(os.path.join(run, "best_model.pth"))
+    trips, meta = _verification_inputs(config, n=LIFECYCLE_VERIFY, seed=1)
+    big = counted(f"verify {LIFECYCLE_VERIFY}", lambda: verify_onnx(
+        onnx_path, config, sd, trips, meta, device=DEVICE))
+    check(big["close"] and big["n"] == LIFECYCLE_VERIFY
+          and launches[f"verify {LIFECYCLE_VERIFY}"]["convnext_block_fused"] == 12,
+          f"the same artifact at batch {LIFECYCLE_VERIFY}: close: true, max|d| = "
+          f"{big['max_diff']:.3g} (12 block launches)")
+
+    # the numpy evaluator against the card's f32 forward on the same alerts
+    with open(onnx_path, "rb") as f:
+        model_bytes = f.read()
+    feeds = {"image": np.ascontiguousarray(trips.transpose(0, 3, 1, 2)), "metadata": meta}
+    t0 = time.perf_counter()
+    run_model(model_bytes, feeds)
+    host_s = time.perf_counter() - t0
+    model = build_model(config, device=DEVICE)
+    model.load_state_dict(sd, strict=True)
+    x, m = torch.from_numpy(trips).to(DEVICE), torch.from_numpy(meta).to(DEVICE)
+    with float32_exact(), torch.inference_mode():
+        card_ms = time_ms(lambda: model(x, m))
+    state["lifecycle_rates"] = (LIFECYCLE_VERIFY / host_s, LIFECYCLE_VERIFY * 1e3 / card_ms)
+    print(f"  {LIFECYCLE_VERIFY} alerts: numpy evaluator {host_s:.2f} s = "
+          f"{state['lifecycle_rates'][0]:.1f} alerts/s (host), the card's f32 forward "
+          f"{card_ms:.3f} ms = {state['lifecycle_rates'][1]:.1f} alerts/s on {state['gpu']}",
+          flush=True)
+
+    counted("cli.export torch", lambda: _timed_cli(
+        "cli.export torch", export_cli, [run, "--format", "torch"], secs))
+    fresh = build_model(config, device=DEVICE)
+    fresh.load_state_dict(load_torch_checkpoint(os.path.join(run, "pytorch_model.bin")),
+                          strict=True)
+    _, scores = predict_dataset(fresh, config, val)
+    d = float(np.abs(scores - result["best_val_scores"]).max())
+    check(d <= 1e-6, f"pytorch_model.bin loads strict into a fresh model and scores the val "
+                     f"split within 1e-6 of the run's best epoch (max|d|={d:.3g})")
+
+    # ---- cli.publish --no-upload, then the published directory as users load it
+    counted("cli.publish", lambda: _timed_cli("cli.publish", publish_cli,
+                                              [run, "--no-upload"], secs))
+    published, pub_config = load_model_dir(run, device=DEVICE)
+    _, scores = predict_dataset(published, pub_config, val)
+    d = float(np.abs(scores - result["best_val_scores"]).max())
+    check(os.path.isfile(os.path.join(run, "README.md")) and d <= 1e-6,
+          f"cli.publish --no-upload: model card written; load_model_dir scores the val "
+          f"split within 1e-6 of the run's best epoch (max|d|={d:.3g})")
+
+    # ---- an inceptionnext_pico export through fused_ln_mlp's f32 path
+    inc_cfg = normalize_config({**FLAGSHIP_CONFIG, "model_kind": LIFECYCLE_INCEPTION})
+    inc = build_model(inc_cfg, device=DEVICE, seed=3)
+    _randomise(inc, seed=4)
+    inc_path = os.path.join(root, "inceptionnext.onnx")
+    export_onnx(inc_cfg, inc, inc_path)
+    t_in, m_in = _verification_inputs(inc_cfg)
+    inc_report = counted("verify inceptionnext", lambda: verify_onnx(
+        inc_path, inc_cfg, inc, t_in, m_in, device=DEVICE))
+    check(inc_report["close"]
+          and launches["verify inceptionnext"] == {"convnext_block_fused": 0,
+                                                   "fused_ln_mlp": 12},
+          f"{LIFECYCLE_INCEPTION} (random weights): ONNX verified on the card, close: "
+          f"true, max|d| = {inc_report['max_diff']:.3g} (12 fused_ln_mlp launches)")
+    torch.cuda.synchronize()
+    secs["whole path"] = time.perf_counter() - path_t0
+    total = {k: sum(v[k] for v in launches.values())
+             for k in ("convnext_block_fused", "fused_ln_mlp")}
+    state["lifecycle"] = {"secs": secs, "launches": launches, "total": total,
+                          "onnx_mb": onnx_mb, "max_diff": (report["max_diff"],
+                                                           big["max_diff"],
+                                                           inc_report["max_diff"])}
+
+    # ---- the crop ops and the NaN-row mask on the card against numpy
+    raw = np.load(os.path.join(base, "trues_triplets.npy"))[:LIFECYCLE_VERIFY]
+    raw32 = raw.astype(np.float32)
+    m0 = (63 - LIFECYCLE_CROP) // 2
+    want_c = raw32[:, m0:m0 + LIFECYCLE_CROP, m0:m0 + LIFECYCLE_CROP, :]
+    want_n = want_c / np.linalg.norm(want_c.astype(np.float64), axis=(1, 2), keepdims=True)
+    t = torch.from_numpy(raw32).to(DEVICE)
+    got_c = center_crop(t, LIFECYCLE_CROP).cpu().numpy()
+    got_n = crop_triplets(t, LIFECYCLE_CROP).cpu().numpy()
+    raw32[3, 5, 7, 1] = np.nan
+    got_mask = nan_row_mask(torch.from_numpy(raw32).to(DEVICE)).cpu().numpy()
+    err = float(np.abs(got_n - want_n).max())
+    check(np.array_equal(got_c, want_c) and err <= 1e-6
+          and np.array_equal(got_mask, np.isnan(raw32).any(axis=(1, 2, 3))),
+          f"center_crop (exact), crop_triplets (max|d| = {err:.3g} against float64 numpy) "
+          f"and nan_row_mask on the card at {LIFECYCLE_VERIFY} x 63 x 63 x 3 -> "
+          f"{LIFECYCLE_CROP}")
+
+
+# ------------------------------ phase 16 ------------------------------
 
 def _kernel_entry(name, source, replaces, launches, rows):
     """One forward's worth of launches at batch 3072 in bf16 (the serving
@@ -2758,6 +3078,12 @@ def phase_report(state: dict) -> None:
         state["distill_launches"]["convnext_block_fused"]
     ln_mlp_paths[f"cli.distill student ({DISTILL_STUDENT}, train + eval)"] = \
         state["distill_launches"]["fused_ln_mlp"]
+    # this slice's path: acquisition → cli.dataset → cli.train → cli.export
+    # (ONNX verified on the card) → cli.publish, and an InceptionNeXt export
+    lc = state["lifecycle"]["total"]
+    paths["lifecycle (cli.train 1 epoch + ONNX verifications at 16 and 256 alerts)"] = \
+        lc["convnext_block_fused"]
+    ln_mlp_paths[f"lifecycle ({LIFECYCLE_INCEPTION} ONNX verification)"] = lc["fused_ln_mlp"]
     distill_shapes = {}
     for (name, n_b, dname), t in state["distill_kernels"].items():
         distill_shapes.setdefault(name, {})[f"batch {n_b} {dname}"] = dict(
@@ -2866,6 +3192,7 @@ def phase_report(state: dict) -> None:
             "any_width": "btsbot_tpu_torch/csrc/any_width.cu"}
     _report_widths(state)
     _report_daemon(state)
+    _report_lifecycle(state)
     state["kernels_line"] = json.dumps({"kernels": kernels})
 
 
@@ -2911,6 +3238,20 @@ def _report_daemon(state: dict) -> None:
               f"{' / '.join(f'{ms:.3f}' for ms in dist['alone'][(n, s_dtype)])})", flush=True)
 
 
+def _report_lifecycle(state: dict) -> None:
+    lc = state["lifecycle"]
+    print(f"  lifecycle seconds on {state['gpu']}: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in lc["secs"].items()), flush=True)
+    host, card = state["lifecycle_rates"]
+    print(f"  lifecycle: model.onnx {lc['onnx_mb']:.2f} MiB; ONNX max|d| "
+          f"{' / '.join(f'{d:.3g}' for d in lc['max_diff'])} (16 / {LIFECYCLE_VERIFY} alerts "
+          f"/ {LIFECYCLE_INCEPTION}); numpy evaluator {host:.1f} alerts/s against the card's "
+          f"f32 forward {card:.1f} alerts/s on {LIFECYCLE_VERIFY} alerts", flush=True)
+    print(f"  lifecycle launches: {lc['total']} = " + "; ".join(
+        f"{k} {v['convnext_block_fused']} / {v['fused_ln_mlp']}"
+        for k, v in lc["launches"].items() if any(v.values())), flush=True)
+
+
 PHASES = [("setup", phase_setup), ("kernels", phase_kernels),
           ("main path", phase_main_path), ("fast path", phase_fast_path),
           ("forward split", phase_forward_split), ("train", phase_train),
@@ -2918,7 +3259,7 @@ PHASES = [("setup", phase_setup), ("kernels", phase_kernels),
           ("inceptionnext", phase_inceptionnext), ("widths", phase_widths),
           ("nano", phase_nano),
           ("daemon", phase_daemon), ("val", phase_val), ("distill", phase_distill),
-          ("report", phase_report)]
+          ("lifecycle", phase_lifecycle), ("report", phase_report)]
 
 
 def main() -> int:

@@ -4,9 +4,10 @@
 jax, no flax, nothing of ``btsbot_tpu`` (whose ``__init__`` loads flax), and
 no pandas.  A subprocess import and an AST scan of every module (and of
 ``chip_smoke.py``) hold it to that.  The optional packages (matplotlib for
-the diagnostic figure, wandb, timm, umap) are imported only inside the
-functions that use them: never at a module's top level, and not by
-importing any module of the port.
+the diagnostic figure, wandb, timm, umap; the data layer's and the artifact
+path's clients: requests, PIL, astropy, penquins, datasets, huggingface_hub,
+onnx, onnxruntime) are imported only inside the functions that use them:
+never at a module's top level, and not by importing any module of the port.
 """
 
 import ast
@@ -27,8 +28,10 @@ CONFIGS = sorted(glob.glob(os.path.join(REPO, "btsbot_tpu", "train_configs", "*.
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "btsbot_tpu", "pandas",
              "matplotlib", "sklearn")
 # allowed inside a function body only (imported when a figure is drawn, a
-# run is logged to wandb, a timm backbone fetched, a UMAP projection made)
-OPTIONAL = ("matplotlib", "wandb", "timm", "umap")
+# run is logged to wandb, a timm backbone fetched, a UMAP projection made, a
+# service queried, a dataset or model published, an ONNX runtime asked)
+OPTIONAL = ("matplotlib", "wandb", "timm", "umap", "requests", "PIL", "astropy", "penquins",
+            "datasets", "huggingface_hub", "onnx", "onnxruntime")
 
 
 @pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
@@ -75,6 +78,13 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import btsbot_tpu_torch.interop.pretrained, btsbot_tpu_torch.engine.distill\n"
         "import btsbot_tpu_torch.cli.distill, btsbot_tpu_torch.cli.sweep\n"
         "import btsbot_tpu_torch.utils.profiling, btsbot_tpu_torch.utils.compile_cache\n"
+        "import btsbot_tpu_torch.data.alerts, btsbot_tpu_torch.data.splits\n"
+        "import btsbot_tpu_torch.data.hf_dataset, btsbot_tpu_torch.data.query.kowalski\n"
+        "import btsbot_tpu_torch.data.query.ztfid, btsbot_tpu_torch.data.query.cutouts\n"
+        "import btsbot_tpu_torch.cli.dataset, btsbot_tpu_torch.cli.download\n"
+        "import btsbot_tpu_torch.interop.onnx_proto, btsbot_tpu_torch.interop.onnx_numpy\n"
+        "import btsbot_tpu_torch.interop.onnx_export, btsbot_tpu_torch.cli.export\n"
+        "import btsbot_tpu_torch.interop.publish, btsbot_tpu_torch.cli.publish\n"
         "btsbot_tpu_torch.AlertScorer, btsbot_tpu_torch.build_model\n"
         "btsbot_tpu_torch.AlertStreamConsumer\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + OPTIONAL!r}]\n"
