@@ -18,8 +18,8 @@
 // What bounds it on the H100: per pixel, the two products' 8 C^2
 // multiply-adds and the 49 C of the taps, against 2 C values read and
 // written.  In bf16 on the tensor cores the two limits are about even at
-// C = 64 and the operations win from C = 128 on; in f32 (no TF32) the
-// operations win everywhere.
+// C = 64 and the operations win from C = 128 on; in f32 (three TF32
+// products, tf32x3.cu) the operations win everywhere.
 //
 // bfloat16 (the serving type) runs the design of hopper_mlp.cuh for the MLP
 // half.  In front of it: every input a tap of the tile's TM pixels can
@@ -52,132 +52,18 @@
 // where CP > 512 leaves no room for the 49 taps' weights beside Xn they
 // are read from device memory.
 //
-// float32 keeps exact float FMAs on the CUDA cores (convnext_block_kernel
-// below with block_common.cuh's mlp_tile; the depthwise weights staged
-// transposed in the shared memory the weight chunks use afterwards);
-// any_width.cu at every other width.
+// float32 runs the three-TF32-product design of tf32x3.cu
+// (btsbot_convnext_block_tf32x3), at every width.
 
 #include "block_common.cuh"
 #include "hopper_mlp.cuh"
 
 namespace btsbot {
 
-constexpr int kTaps = 49;  // 7 x 7
-
-template <int C>
-__global__ void __launch_bounds__(kThreads)
-    convnext_block_kernel(const float* __restrict__ x, const float* __restrict__ dw_w,
-                          const float* __restrict__ dw_b, const float* __restrict__ ln_w,
-                          const float* __restrict__ ln_b, const float* __restrict__ w1,
-                          const float* __restrict__ b1, const float* __restrict__ w2,
-                          const float* __restrict__ b2, const float* __restrict__ gamma,
-                          float* __restrict__ out, int B, int H, int W, int hidden) {
-  using S = Smem<C>;
-  static_assert(kTaps * C <= S::SCRATCH, "depthwise weights do not fit");
-  extern __shared__ float smem[];
-  float* dws = smem + S::W1S;  // [tap][C], until the first MLP chunk loads
-  const long long M = static_cast<long long>(B) * H * W;
-  const long long row0 = static_cast<long long>(blockIdx.x) * S::TM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  for (int i = threadIdx.x; i < kTaps * C; i += kThreads) {
-    const int c = i / kTaps, t = i - c * kTaps;  // dw_w is (C, 1, 7, 7)
-    dws[t * C + c] = dw_w[i];
-  }
-  __syncthreads();
-
-  const int hw = H * W;
-  for (int r = warp; r < S::TM; r += kWarps) {
-    float* xs_row = smem + S::XS + r * (C + 1);
-    const long long p = row0 + r;
-    if (p >= M) {
-#pragma unroll
-      for (int q = 0; q < C / 32; ++q) xs_row[lane + 32 * q] = 0.f;
-      continue;
-    }
-    const long long n = p / hw;
-    const int rem = static_cast<int>(p - n * hw);
-    const int py = rem / W, px = rem - (rem / W) * W;
-    float v[C / 32];
-#pragma unroll
-    for (int q = 0; q < C / 32; ++q) v[q] = 0.f;
-    for (int dy = 0; dy < 7; ++dy) {
-      const int yy = py + dy - 3;
-      if (yy < 0 || yy >= H) continue;
-      for (int dx = 0; dx < 7; ++dx) {
-        const int xx = px + dx - 3;
-        if (xx < 0 || xx >= W) continue;
-        const float* src = x + ((n * H + yy) * W + xx) * C;
-        const float* wt = dws + (dy * 7 + dx) * C;
-#pragma unroll
-        for (int q = 0; q < C / 32; ++q) {
-          const int c = lane + 32 * q;
-          v[q] = fmaf(src[c], wt[c], v[q]);
-        }
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < C / 32; ++q) v[q] += dw_b[lane + 32 * q];
-    layer_norm_row<C>(v, ln_w, ln_b, xs_row, lane);
-  }
-  // mlp_tile's first barrier also retires the reads of dws before the first
-  // weight chunk overwrites it; the shortcut is the block input.
-  mlp_tile<C>(smem, w1, b1, w2, b2, gamma, x, out, row0, M, hidden);
-}
-
-template <int C>
-static cudaError_t launch_block(const void* x, const void* dw_w, const void* dw_b,
-                                const void* ln_w, const void* ln_b, const void* w1,
-                                const void* b1, const void* w2, const void* b2,
-                                const void* gamma, void* out, int B, int H, int W,
-                                int hidden, cudaStream_t stream) {
-  using S = Smem<C>;
-  if (hidden <= 0 || hidden % S::J != 0) return cudaErrorInvalidValue;
-  const long long M = static_cast<long long>(B) * H * W;
-  return launch_tiles(convnext_block_kernel<C>, M, S::TM, S::BYTES, stream,
-                      static_cast<const float*>(x), static_cast<const float*>(dw_w),
-                      static_cast<const float*>(dw_b), static_cast<const float*>(ln_w),
-                      static_cast<const float*>(ln_b), static_cast<const float*>(w1),
-                      static_cast<const float*>(b1), static_cast<const float*>(w2),
-                      static_cast<const float*>(b2), static_cast<const float*>(gamma),
-                      static_cast<float*>(out), B, H, W, hidden);
-}
-
-static cudaError_t dispatch_block(const void* x, const void* dw_w, const void* dw_b,
-                                  const void* ln_w, const void* ln_b, const void* w1,
-                                  const void* b1, const void* w2, const void* b2,
-                                  const void* gamma, void* out, int B, int H, int W,
-                                  int C, int hidden, cudaStream_t stream) {
-  switch (C) {
-    case 64:
-      return launch_block<64>(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, out, B, H, W, hidden, stream);
-    case 128:
-      return launch_block<128>(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, out, B, H, W, hidden, stream);
-    case 256:
-      return launch_block<256>(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, out, B, H, W, hidden, stream);
-    case 512:
-      return launch_block<512>(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, out, B, H, W, hidden, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 // ------------------------- bfloat16: wgmma + TMA -------------------------
 
 namespace hopper {
 
-// How far a tap can reach along each axis, and the run of rows it spans.
-struct Reach {
-  int ry, rx, halo, taps;
-};
-inline __host__ __device__ Reach reach_of(int H, int W) {
-  Reach q;
-  q.ry = H - 1 < 3 ? H - 1 : 3;
-  q.rx = W - 1 < 3 ? W - 1 : 3;
-  q.halo = q.ry * W + q.rx;
-  q.taps = (2 * q.ry + 1) * (2 * q.rx + 1);
-  return q;
-}
 // Bytes of the input tile with its halo (rows of c channels), and of the
 // taps' weights in shared memory.
 constexpr long long tile_bytes(int tm, int c, int halo) {
@@ -461,7 +347,7 @@ extern "C" int btsbot_tile_rows(int C) {
 // take the width (-1).
 extern "C" int btsbot_block_tiles_input(int C, int H, int W) {
   using namespace btsbot::hopper;
-  const Reach q = reach_of(H, W);
+  const btsbot::Reach q = btsbot::reach_of(H, W);
 #define BTS_CASE(CP) case CP: return tiled_stages<Plan<CP, true>>(C, q.halo, q.taps) >= kMinStages;
   switch (any_width_plan(C)) {
     BTS_ANY_WIDTHS(BTS_CASE)
@@ -470,20 +356,20 @@ extern "C" int btsbot_block_tiles_input(int C, int H, int W) {
 #undef BTS_CASE
 }
 
-// x and out (B, H, W, C) contiguous, weights in the module layouts, all of
-// one type (is_bf16: 0 float, 1 bfloat16), on one card.  Launches on
-// `stream`, does not synchronise, returns cudaGetLastError() (0 on success).
+// x and out (B, H, W, C) contiguous, weights in the module layouts, all
+// bfloat16 (float32 runs btsbot_convnext_block_tf32x3), on one card.
+// is_bf16 must be 1: a guard that keeps the earlier signature, in which it
+// chose the type, and refuses a float32 caller of it.  Launches on `stream`, does not synchronise, returns
+// cudaGetLastError() (0 on success).
 extern "C" int btsbot_convnext_block(const void* x, const void* dw_w, const void* dw_b,
                                      const void* ln_w, const void* ln_b, const void* w1,
                                      const void* b1, const void* w2, const void* b2,
                                      const void* gamma, void* out, int B, int H, int W,
                                      int C, int hidden, int is_bf16, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return btsbot::hopper::dispatch_block_bf16(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2,
-                                               gamma, out, B, H, W, C, hidden, false, s);
-  return btsbot::dispatch_block(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma,
-                                       out, B, H, W, C, hidden, s);
+  if (!is_bf16) return cudaErrorInvalidValue;
+  return btsbot::hopper::dispatch_block_bf16(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma,
+                                             out, B, H, W, C, hidden, false,
+                                             static_cast<cudaStream_t>(stream));
 }
 
 // As btsbot_convnext_block in bfloat16 only, at any C up to 1024 and any

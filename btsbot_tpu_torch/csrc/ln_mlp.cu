@@ -8,7 +8,8 @@
 // What bounds it on the H100: per row, the two products' 8 C^2
 // multiply-adds against 3 C values moved (h and the shortcut in, the output
 // out).  In bf16 on the tensor cores bytes bound it at C = 64 and the
-// operations from C = 128 on; in f32 (no TF32) the operations everywhere.
+// operations from C = 128 on; in f32 (three TF32 products, tf32x3.cu) the
+// operations everywhere.
 // The (M, 4C) hidden activations that an unfused sequence writes and reads
 // back are the traffic this kernel saves.
 //
@@ -27,77 +28,13 @@
 // padded inside it (ln_mlp_bf16_kernel<CP, true>, btsbot_ln_mlp_wgmma; the
 // design notes are hopper_mlp.cuh's).
 //
-// float32 keeps exact float FMAs on the CUDA cores (the 1e-5 contract
-// forbids TF32): ln_mlp_kernel below with block_common.cuh's mlp_tile,
-// ceiling 67 TFLOP/s; any_width.cu at every other width.
+// float32 runs the three-TF32-product design of tf32x3.cu
+// (btsbot_ln_mlp_tf32x3), at every width.
 
 #include "block_common.cuh"
 #include "hopper_mlp.cuh"
 
 namespace btsbot {
-
-template <int C>
-__global__ void __launch_bounds__(kThreads)
-    ln_mlp_kernel(const float* __restrict__ h, const float* __restrict__ res,
-                  const float* __restrict__ ln_w, const float* __restrict__ ln_b,
-                  const float* __restrict__ w1, const float* __restrict__ b1,
-                  const float* __restrict__ w2, const float* __restrict__ b2,
-                  const float* __restrict__ gamma, float* __restrict__ out, long long M,
-                  int hidden) {
-  using S = Smem<C>;
-  extern __shared__ float smem[];
-  const long long row0 = static_cast<long long>(blockIdx.x) * S::TM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  for (int r = warp; r < S::TM; r += kWarps) {
-    float* xs_row = smem + S::XS + r * (C + 1);
-    const long long row = row0 + r;
-    if (row >= M) {
-#pragma unroll
-      for (int q = 0; q < C / 32; ++q) xs_row[lane + 32 * q] = 0.f;
-      continue;
-    }
-    float v[C / 32];
-#pragma unroll
-    for (int q = 0; q < C / 32; ++q) v[q] = h[row * C + lane + 32 * q];
-    layer_norm_row<C>(v, ln_w, ln_b, xs_row, lane);
-  }
-  mlp_tile<C>(smem, w1, b1, w2, b2, gamma, res, out, row0, M, hidden);
-}
-
-template <int C>
-static cudaError_t launch_ln_mlp(const void* h, const void* res, const void* ln_w,
-                                 const void* ln_b, const void* w1, const void* b1,
-                                 const void* w2, const void* b2, const void* gamma,
-                                 void* out, long long M, int hidden, cudaStream_t stream) {
-  using S = Smem<C>;
-  if (hidden <= 0 || hidden % S::J != 0) return cudaErrorInvalidValue;
-  return launch_tiles(ln_mlp_kernel<C>, M, S::TM, S::BYTES, stream,
-                      static_cast<const float*>(h), static_cast<const float*>(res),
-                      static_cast<const float*>(ln_w), static_cast<const float*>(ln_b),
-                      static_cast<const float*>(w1), static_cast<const float*>(b1),
-                      static_cast<const float*>(w2), static_cast<const float*>(b2),
-                      static_cast<const float*>(gamma), static_cast<float*>(out), M, hidden);
-}
-
-static cudaError_t dispatch_ln_mlp(const void* h, const void* res, const void* ln_w,
-                                   const void* ln_b, const void* w1, const void* b1,
-                                   const void* w2, const void* b2, const void* gamma,
-                                   void* out, long long M, int C, int hidden,
-                                   cudaStream_t stream) {
-  switch (C) {
-    case 64:
-      return launch_ln_mlp<64>(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, hidden, stream);
-    case 128:
-      return launch_ln_mlp<128>(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, hidden, stream);
-    case 256:
-      return launch_ln_mlp<256>(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, hidden, stream);
-    case 512:
-      return launch_ln_mlp<512>(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, hidden, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
 
 // ------------------------- bfloat16: wgmma + TMA -------------------------
 
@@ -242,20 +179,19 @@ static cudaError_t dispatch_ln_mlp_bf16(const void* h, const void* res, const vo
 
 }  // namespace btsbot
 
-// All tensors contiguous on one card, of one type (is_bf16: 0 float, 1
-// bfloat16).  Launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() after the launch (0 on success).
+// All tensors contiguous on one card, bfloat16 (float32 runs
+// btsbot_ln_mlp_tf32x3).  is_bf16 must be 1: a guard that keeps the earlier
+// signature, in which it chose the type, and refuses a float32 caller of it.  Launches on `stream`, does not synchronise,
+// and returns cudaGetLastError() after the launch (0 on success).
 extern "C" int btsbot_ln_mlp(const void* h, const void* res, const void* ln_w,
                              const void* ln_b, const void* w1, const void* b1,
                              const void* w2, const void* b2, const void* gamma,
                              void* out, long long M, int C, int hidden, int is_bf16,
                              void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return btsbot::hopper::dispatch_ln_mlp_bf16(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma,
-                                                out, M, C, hidden, false, s);
-  return btsbot::dispatch_ln_mlp(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out,
-                                        M, C, hidden, s);
+  if (!is_bf16) return cudaErrorInvalidValue;
+  return btsbot::hopper::dispatch_ln_mlp_bf16(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out,
+                                              M, C, hidden, false,
+                                              static_cast<cudaStream_t>(stream));
 }
 
 // As btsbot_ln_mlp in bfloat16 only, at any C up to 1024 and any hidden

@@ -45,17 +45,28 @@ _SIGNATURES = {
     # x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, out, B, H, W, C,
     # hidden, is_bf16, stream
     "btsbot_convnext_block": [_P] * 11 + [ctypes.c_int] * 6 + [_P],
-    # the same two functions at any width: float32 (csrc/any_width.cu) and
-    # bfloat16 on the tensor cores (convnext_block.cu, ln_mlp.cu)
-    "btsbot_ln_mlp_any": [_P] * 10 + [ctypes.c_longlong, ctypes.c_int,
-                                      ctypes.c_int, ctypes.c_int, _P],
-    "btsbot_convnext_block_any": [_P] * 11 + [ctypes.c_int] * 6 + [_P],
+    # the same two functions in bfloat16 on the tensor cores at any width
+    # (convnext_block.cu, ln_mlp.cu)
     "btsbot_ln_mlp_wgmma": [_P] * 10 + [ctypes.c_longlong, ctypes.c_int,
                                         ctypes.c_int, ctypes.c_int, _P],
     "btsbot_convnext_block_wgmma": [_P] * 11 + [ctypes.c_int] * 6 + [_P],
-    # M, C, hidden -> rows of the flattened index a block of the float32
-    # any-width kernels takes (0: widths they do not take)
-    "btsbot_any_width_rows": [ctypes.c_longlong, ctypes.c_int, ctypes.c_int],
+    # float32 at every width, three TF32 products (csrc/tf32x3.cu): the same
+    # arguments with a workspace (pointer, bytes) after out, and no is_bf16
+    "btsbot_ln_mlp_tf32x3": [_P] * 11 + [ctypes.c_longlong, ctypes.c_longlong,
+                                         ctypes.c_int, ctypes.c_int, _P],
+    "btsbot_convnext_block_tf32x3": [_P] * 12 + [ctypes.c_longlong]
+    + [ctypes.c_int] * 5 + [_P],
+    # M, C, hidden, taps -> floats of the workspace a float32 launch needs
+    # (the weights' split halves, and partial sums where the hidden chunks are
+    # split over blocks; 0: widths the kernels do not take)
+    "btsbot_tf32x3_workspace_floats": [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_int],
+    # C -> rows of the flattened index a block of the float32 kernels takes,
+    # and C, H, W -> 1 if the float32 block kernel keeps the input tile of
+    # such a map in shared memory (0: x through L2; both 0 / -1 for a width
+    # they do not take)
+    "btsbot_tf32x3_rows": [ctypes.c_int],
+    "btsbot_tf32x3_tiles_input": [ctypes.c_int] * 3,
     # C -> rows of the flattened index a block of the bf16 kernels takes
     # (tuned or wgmma_any; 0: a width they do not take)
     "btsbot_tile_rows": [ctypes.c_int],
@@ -63,6 +74,9 @@ _SIGNATURES = {
     # map in shared memory, 0 if it reads x from device memory
     "btsbot_block_tiles_input": [ctypes.c_int] * 3,
 }
+
+# entry points that return something other than a CUDA error code
+_RESTYPES = {"btsbot_tf32x3_workspace_floats": ctypes.c_longlong}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -169,7 +183,7 @@ def library() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             _lib = lib
     return _lib
 
@@ -180,41 +194,66 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name} failed to launch: CUDA error {err}")
 
 
-KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# Widths the tuned kernels take (csrc/convnext_block.cu, csrc/ln_mlp.cu: bf16
-# in units of 64 channels and 64 hidden units, float32 in tiles specialised
-# per C).  Every other width runs, in float32, csrc/any_width.cu (float
-# FMAs) and, in bfloat16, the same tensor-core design padded inside the
-# kernel to a multiple of 64 channels, up to WGMMA_MAX_WIDTH.
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+# Widths the tuned bfloat16 kernels take (csrc/convnext_block.cu,
+# csrc/ln_mlp.cu: in units of 64 channels and 64 hidden units).  Every other
+# width runs, in bfloat16, the same tensor-core design padded inside the
+# kernel to a multiple of 64 channels.  float32 runs csrc/tf32x3.cu at every
+# width: both products as three TF32 tensor-core products each.
 TUNED_WIDTHS = (64, 128, 256, 512)
-WGMMA_MAX_WIDTH = 1024
+MAX_WIDTH = 1024  # the widest C the kernels of either type take
 # C entry point of each function and kernel variant
 ENTRY_POINTS = {
     "convnext_block": {"tuned": "btsbot_convnext_block",
-                       "any_width": "btsbot_convnext_block_any",
+                       "tf32x3": "btsbot_convnext_block_tf32x3",
                        "wgmma_any": "btsbot_convnext_block_wgmma"},
-    "ln_mlp": {"tuned": "btsbot_ln_mlp", "any_width": "btsbot_ln_mlp_any",
+    "ln_mlp": {"tuned": "btsbot_ln_mlp", "tf32x3": "btsbot_ln_mlp_tf32x3",
                "wgmma_any": "btsbot_ln_mlp_wgmma"},
 }
 def kernel_variant(c: int, hidden: int, dtype: torch.dtype) -> str:
     """The kernel that takes a block of width ``c`` with ``hidden`` MLP units
-    in ``dtype``: "tuned" for C in TUNED_WIDTHS at a hidden width that is a
-    multiple of 64 (every ``k * C`` there), in both types; at every other C
-    and hidden that are multiples of 8 (every ConvNeXt size's widths and
-    their ``.r<k>`` hidden widths) "any_width" in float32 and "wgmma_any" in
-    bfloat16 (C up to WGMMA_MAX_WIDTH).  Raises on what none takes."""
+    in ``dtype``: in float32 "tf32x3"; in bfloat16 "tuned" for C in
+    TUNED_WIDTHS at a hidden width that is a multiple of 64 (every ``k * C``
+    there) and "wgmma_any" at every other C.  C and hidden are multiples of
+    8 (every ConvNeXt size's widths and their ``.r<k>`` hidden widths), C up
+    to MAX_WIDTH.  Raises on what none takes."""
     if dtype not in KERNEL_DTYPES:
         raise TypeError(f"the kernels take float32 or bfloat16, got {dtype}")
     if c <= 0 or hidden <= 0 or c % 8 or hidden % 8:
         raise ValueError(f"the kernels take C and hidden widths that are positive "
                          f"multiples of 8, got C={c}, hidden={hidden}")
-    if c in TUNED_WIDTHS and hidden % 64 == 0:
-        return "tuned"
+    if c > MAX_WIDTH:
+        raise ValueError(f"the kernels take C up to {MAX_WIDTH}, got C={c}")
     if dtype == torch.float32:
-        return "any_width"
-    if c > WGMMA_MAX_WIDTH:
-        raise ValueError(f"the bfloat16 kernels take C up to {WGMMA_MAX_WIDTH}, got C={c}")
-    return "wgmma_any"
+        return "tf32x3"
+    return "tuned" if c in TUNED_WIDTHS and hidden % 64 == 0 else "wgmma_any"
+
+
+def kernel_workspace(variant: str, x, m: int, c: int, hidden: int, taps: bool):
+    """A fresh float32 workspace for a "tf32x3" launch over ``m`` rows, of
+    the size the library's plan asks for (None for the bfloat16 kernels).
+    The caller holds it until the launch is enqueued; after that PyTorch's
+    caching allocator reuses it only for work that the stream orders after
+    the launch."""
+    if variant != "tf32x3":
+        return None
+    floats = library().btsbot_tf32x3_workspace_floats(m, c, hidden, int(taps))
+    if floats <= 0:
+        raise ValueError(f"the float32 kernels do not take C={c}, hidden={hidden}")
+    return torch.empty(floats, dtype=torch.float32, device=x.device)
+
+
+def type_args(variant: str) -> list:
+    """The bfloat16 entry points' is_bf16 (always 1: it keeps the earlier
+    signature, in which it chose the type, as a guard against a float32
+    caller of it); none for the float32 ones, whose type is their own."""
+    return [] if variant == "tf32x3" else [1]
+
+
+def workspace_args(ws) -> list:
+    """The (pointer, bytes) arguments of a workspace after ``out``; none
+    without one."""
+    return [] if ws is None else [ws.data_ptr(), ws.numel() * ws.element_size()]
 
 
 def count_launch(wrapper, variant: str, c: int, hidden: int) -> None:

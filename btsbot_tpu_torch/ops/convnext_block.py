@@ -6,11 +6,13 @@ Port of btsbot_tpu/ops/pallas_convnext.py:
   ``_block_reference``): depthwise 7×7 SAME conv with float32 accumulation,
   cast to the storage type, + bias; then the LN → MLP → γ → residual chain
   of ``ops.ln_mlp.ln_mlp_reference`` with the block input as shortcut;
-* ``convnext_block_fused`` — the wrapper of the CUDA kernels: the tuned
-  ``csrc/convnext_block.cu`` at C = 64 / 128 / 256 / 512; at every other
-  width its bfloat16 tensor-core kernels padded inside the kernel
-  ("wgmma_any") and float32's ``csrc/any_width.cu``
-  (``_build.kernel_variant``, by width and type).
+* ``convnext_block_fused`` — the wrapper of the CUDA kernels: in bfloat16
+  the tuned ``csrc/convnext_block.cu`` at C = 64 / 128 / 256 / 512 and its
+  tensor-core kernels padded inside the kernel ("wgmma_any") at every other
+  width; in float32 ``csrc/tf32x3.cu`` at every width ("tf32x3": both
+  products as three TF32 tensor-core products, weights split into a
+  workspace the wrapper allocates) (``_build.kernel_variant``, by width and
+  type).
   On a CUDA tensor it launches one of them (counted in
   ``convnext_block_fused.launches`` and ``.launches_by_width``) or raises;
   only a CPU tensor takes the plain version.  Its backward recomputes the plain
@@ -71,10 +73,12 @@ def _launch_block(x, dw_w, dw_b, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, gamma):
         "convnext_block_fused")
     variant = _build.kernel_variant(c, hidden, x.dtype)
     out = torch.empty_like(ops[0])
+    ws = _build.kernel_workspace(variant, x, b * hgt * wid, c, hidden, taps=True)
     launch = getattr(_build.library(),
                      _build.ENTRY_POINTS["convnext_block"][variant])
-    err = launch(*[t.data_ptr() for t in ops], out.data_ptr(), b, hgt, wid, c,
-                 hidden, _build.KERNEL_DTYPES[x.dtype], _build.current_stream(x))
+    err = launch(*[t.data_ptr() for t in ops], out.data_ptr(), *_build.workspace_args(ws),
+                 b, hgt, wid, c, hidden, *_build.type_args(variant),
+                 _build.current_stream(x))
     _build.check(err, f"convnext_block_fused ({variant}, C={c})")
     _build.count_launch(convnext_block_fused, variant, c, hidden)
     return out

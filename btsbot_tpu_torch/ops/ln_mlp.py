@@ -6,9 +6,10 @@ Port of btsbot_tpu/ops/pallas_mlp.py.  Three things live here:
   with the JAX kernel's rounding points: LN statistics in float32, a cast to
   the storage type after the normalisation and after each product, biases,
   γ and the residual added in the storage type;
-* ``fused_ln_mlp`` — the wrapper of the CUDA kernels ``csrc/ln_mlp.cu`` (C =
-  64 / 128 / 256 / 512; at every other width its bfloat16 "wgmma_any"
-  kernels) and ``csrc/any_width.cu`` (float32 at every other width;
+* ``fused_ln_mlp`` — the wrapper of the CUDA kernels: bfloat16 in
+  ``csrc/ln_mlp.cu`` (tuned at C = 64 / 128 / 256 / 512, "wgmma_any" at
+  every other width), float32 in ``csrc/tf32x3.cu`` at every width
+  ("tf32x3": three TF32 tensor-core products per product;
   ``_build.kernel_variant``, by width and type).  On a CUDA tensor it launches one of them
   (and counts the launch in ``fused_ln_mlp.launches`` and
   ``.launches_by_width``) or raises; only a CPU tensor takes the plain
@@ -69,9 +70,10 @@ def _launch_ln_mlp(h, shortcut, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, gamma):
         "fused_ln_mlp")
     variant = _build.kernel_variant(c, hidden, h.dtype)
     out = torch.empty_like(ops[0])
+    ws = _build.kernel_workspace(variant, h, m, c, hidden, taps=False)
     launch = getattr(_build.library(), _build.ENTRY_POINTS["ln_mlp"][variant])
-    err = launch(*[t.data_ptr() for t in ops], out.data_ptr(), m, c, hidden,
-                 _build.KERNEL_DTYPES[h.dtype], _build.current_stream(h))
+    err = launch(*[t.data_ptr() for t in ops], out.data_ptr(), *_build.workspace_args(ws),
+                 m, c, hidden, *_build.type_args(variant), _build.current_stream(h))
     _build.check(err, f"fused_ln_mlp ({variant}, C={c}, hidden={hidden})")
     _build.count_launch(fused_ln_mlp, variant, c, hidden)
     return out

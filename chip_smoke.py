@@ -11,19 +11,24 @@ convnext_pico, 63×63×3 triplets + 25 metadata features) on the card:
 
 1. setup: the card's name and power limit, the kernel build (ptxas'
    registers and spills), a ``cuobjdump -sass`` check that every bfloat16
-   kernel holds ``HGMMA`` (tensor-core) instructions, ptxas' warnings, TF32
-   off;
+   kernel and every float32 kernel (``csrc/tf32x3.cu``, three TF32 products
+   on the tensor cores) holds ``HGMMA`` (tensor-core) instructions, ptxas'
+   warnings, TF32 off for the plain versions;
 2. each kernel against its plain PyTorch version at the four pico stage
    shapes at batch 3072, in float32 (rtol 1e-4 / atol 1e-5: summation order)
    and bfloat16 (rtol = atol = 3e-2: two bf16 roundings), with CUDA-event
-   times of both and the bound of the work on an H100, ``fused_ln_mlp``
+   times of both and the bound of the work on an H100 (float32: both
+   bounds, exact float32 at 67 TFLOP/s and three TF32 products at 495 / 3,
+   and in the printed line the first version's recorded time),
+   ``fused_ln_mlp``
    also at hidden 2C (the ``inceptionnext_*.r2`` blocks); then ragged sizes
    (batch 7, batch 1, and sizes one row short of and one row past a tile
    edge, the tile's height asked of the built library), and maps too wide
    for the block kernel to keep its input tile in shared memory;
 3. the main path: ``AlertScorer`` (bf16 and f32, batch 3072) on 2×3072+500
    alerts and on the example alerts, and ``AlertStreamScorer`` on 2×3072
-   synthetic packets; 12 block-kernel launches per batch; f32 scores within
+   synthetic packets; 12 block-kernel launches per batch, every float32 one
+   on the "tf32x3" kernels; f32 scores within
    1e-5 of the plain model on the card, bf16 within 0.01 of f32, stream
    drop masks identical to the array path's;
 4. ``fast_mm_convnext_logits``: 12 ``fused_ln_mlp`` launches, logits within
@@ -85,10 +90,11 @@ convnext_pico, 63×63×3 triplets + 25 metadata features) on the card:
     (f32 rtol 1e-4 / atol 1e-5, bf16 3e-2; ``fused_ln_mlp`` at hidden 4C,
     2C and 3C; a ragged batch and row count), and at nano's at batch 3072
     (hidden 4C) with times, the plain version's and the bound: C = 64 /
-    128 / 256 / 512 in the tuned kernels, every other width in bf16 in the
-    padded tensor-core kernels ("wgmma_any") and in f32 in
-    ``csrc/any_width.cu``; the bf16 wgmma_any kernels at ``ODD_SHAPES``
-    (C = 640 at 7x7, 520, 1000, maps too wide for the input tile); one f32
+    128 / 256 / 512 in the tuned kernels and every other width in the padded
+    tensor-core kernels ("wgmma_any") in bf16, every width in f32 in
+    ``csrc/tf32x3.cu`` ("tf32x3"); both types at ``ODD_SHAPES``
+    (C = 640 at 7x7, 520, 1000, maps too wide for the input tile, 64 rows
+    at C = 768 and one at 1024); one f32
     forward of mm_ConvNeXt at each size at batch 64 against the plain
     model (scores 1e-5, logits rtol 1e-4 / atol 1e-5; launches = the sum of
     the depths), a train step kernel vs plain at atto and base (loss rtol
@@ -149,7 +155,9 @@ convnext_pico, 63×63×3 triplets + 25 metadata features) on the card:
     only);
 16. a ``{"kernels": [...]}`` line (launches by path and by variant and
     width, the source of each variant, a pico and a nano forward's
-    launches against their bound), alerts/s for each scorer and the daemon
+    launches against their bound; the float32 kernels of ``csrc/tf32x3.cu``
+    as entries of their own: a pico f32 forward's 12 launches against both
+    bounds), alerts/s for each scorer and the daemon
     (information only), the per-width times in a table and in
     ``build/smoke_widths.json``;
 17. the card's name and power limit, then as the last line
@@ -179,7 +187,18 @@ BATCH = 3072
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 PEAK_OPS = {"bfloat16": 989e12,  # dense bf16 tensor cores
-            "float32": 67e12}    # float32 outside the tensor cores (no TF32)
+            "float32": 67e12,    # float32 outside the tensor cores (no TF32)
+            # the float32 kernels' products: three dense TF32 tensor-core
+            # products for each (csrc/tf32x3.cu)
+            "tf32x3": 495e12 / 3}
+# The first version's float32 kernels (float FMAs on the CUDA cores) at the
+# four pico stage shapes at batch 3072, ms a launch: recorded on an NVIDIA
+# H100 80GB HBM3 at 700 W (PERF.md, the kernel table's brackets), not
+# measured here, so printed beside this run's times with that label and
+# never put in the kernels line
+FIRST_F32_MS = {"convnext_block_fused": (3.20, 2.28, 2.25, 1.39),
+              "fused_ln_mlp": (1.76, 2.11, 2.09, 1.48),
+              "fused_ln_mlp_r2": (1.01, 1.16, 1.07, 0.74)}
 PICO_STAGES = [(15, 64, 2), (7, 128, 2), (3, 256, 6), (1, 512, 2)]  # side, C, depth
 # maps whose input tile with its halo does not fit a block's shared memory:
 # the bf16 block kernel reads x from device memory there (batch, side, C)
@@ -191,6 +210,9 @@ TOL = {"float32": dict(rtol=1e-4, atol=1e-5), "bfloat16": dict(rtol=3e-2, atol=3
 # 4 tuned widths and at these
 WGMMA_WIDTHS = (64, 128, 192, 256, 320, 384, 448, 512, 640, 768, 1024)
 BF16_KERNELS = 3 * (4 + len(WGMMA_WIDTHS))
+# the float32 kernels (csrc/tf32x3.cu): both functions at 1-4 blocks of 32
+# output columns a warpgroup, and with 128-row tiles (C <= 64)
+F32_KERNELS = 2 * (4 + 1)
 
 META_COLS = [
     "sgscore1", "distpsnr1", "sgscore2", "distpsnr2", "fwhm", "magpsf",
@@ -298,9 +320,14 @@ def phase_setup(state: dict) -> None:
           f"all {BF16_KERNELS} bf16 kernels (fused_ln_mlp, the block kernel with and "
           f"without its input tile in shared memory, x 4 tuned + {len(WGMMA_WIDTHS)} padded "
           f"widths) hold HGMMA instructions")
-    any_width = sorted(k for k in counts if "anyw" in k)
-    check(len(any_width) == 2 and not any("bf16" in k for k in any_width),
-          f"the FMA any-width kernels are float32 only (2 functions): {any_width}")
+    f32 = {k: n for k, n in counts.items() if "tf32x3_kernel" in k}
+    print(f"  HGMMA instructions in the float32 kernels: {sorted(f32.values())}", flush=True)
+    check(len(f32) == F32_KERNELS and min(f32.values()) > 0
+          and len(counts) == BF16_KERNELS + F32_KERNELS + 2,
+          f"all {F32_KERNELS} float32 kernels (fused_ln_mlp and the block kernel, x 1-4 "
+          f"blocks of 32 output columns a warpgroup and the 128-row tile) hold HGMMA "
+          f"instructions, and the library holds no other kernel but the weight split and "
+          f"the split-sum pass")
 
 
 # ------------------------------ phase 2 ------------------------------
@@ -332,6 +359,41 @@ def _bound(bytes_moved: float, ops: float, dtype_name: str) -> tuple[float, str]
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _bound3(bytes_moved: float, mlp_ops: float, tap_ops: float) -> tuple[float, str]:
+    """The bound of a float32 launch as the "tf32x3" kernels do the work:
+    the products at three TF32 tensor-core products each (495 / 3 TFLOP/s),
+    the taps at 67 TFLOP/s, against the bytes at 3.35 TB/s."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = (mlp_ops / PEAK_OPS["tf32x3"] + tap_ops / PEAK_OPS["float32"]) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _timed_row(dname: str, work: tuple, **fields) -> dict:
+    """A timed launch's record: ``fields`` with the bound of ``work`` (bytes,
+    the products' operations, the taps') at the type's rate, and for
+    float32 the three-TF32-product bound beside it (``bound3_ms``); the
+    first version's recorded time (``first_ms``, not measured in this run)
+    is kept for float32 only, for the printed line."""
+    bytes_moved, mlp_ops, tap_ops = work
+    row = dict(fields, dtype=dname)
+    row["bound_ms"], row["bound_by"] = _bound(bytes_moved, mlp_ops + tap_ops, dname)
+    if dname == "float32":
+        row["bound3_ms"], row["bound3_by"] = _bound3(bytes_moved, mlp_ops, tap_ops)
+    else:
+        row.pop("first_ms", None)
+    return row
+
+
+def _f32_note(r: dict) -> str:
+    """A float32 row's second bound and the first version's recorded time."""
+    if r["dtype"] != "float32":
+        return ""
+    ms = r.get("first_ms")
+    first = (f", first version {ms:.2f} ms (recorded, PR 1; not measured here)"
+             if ms is not None else ", first version: none recorded at this shape")
+    return f", bound 3xTF32 {r['bound3_ms']:.4f} ms ({r['bound3_by']}){first}"
+
+
 def _ragged_batches(side: int, tm: int) -> list[int]:
     """Batch 1, and the smallest batches whose B * side^2 rows end one row
     short of and one row past an edge of a tile of tm rows."""
@@ -356,9 +418,19 @@ def phase_kernels(state: dict) -> None:
           and all(lib.btsbot_block_tiles_input(c, side, side) == 0
                   for _, side, c in WIDE_MAPS),
           f"input tile in shared memory at the stage shapes, not at {WIDE_MAPS}")
+    f32_tiles = {(side, c): lib.btsbot_tf32x3_tiles_input(c, side, side)
+                 for side, c in [(s_, c_) for s_, c_, _ in PICO_STAGES]
+                 + [(s_, c_) for _, s_, c_ in WIDE_MAPS]}
+    print(f"  float32 block kernel keeps its input tile in shared memory at (side, C): "
+          f"{[k for k, v in f32_tiles.items() if v == 1]}, reads x through L2 at "
+          f"{[k for k, v in f32_tiles.items() if v == 0]}", flush=True)
+    check(all(v in (0, 1) for v in f32_tiles.values())
+          and all(f32_tiles[(side, c)] == 1 for side, c, _ in PICO_STAGES[:2]),
+          "the float32 block kernel takes every map, its input tile in shared memory at "
+          "the first two stage shapes")
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        for side, c, depth in PICO_STAGES:
+        for stage, (side, c, depth) in enumerate(PICO_STAGES):
             x, p = _block_inputs(side, c, dtype, seed=c)
             m = BATCH * side * side
             item = x.element_size()
@@ -373,15 +445,15 @@ def phase_kernels(state: dict) -> None:
                 ok = torch.allclose(got.float(), want.float(), **TOL[dname])
                 ms = time_ms(lambda: convnext_block_fused(x, *p))
                 plain_ms = time_ms(lambda: convnext_block_reference(x, *p))
-                bound_ms, bound_by = _bound(2 * m * c * item + w_bytes,
-                                            mlp_ops + 2 * 49 * m * c, dname)
-                results["convnext_block_fused"].append(dict(
-                    dtype=dname, shape=[BATCH, side, side, c], depth=depth,
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by=bound_by))
+                work = (2 * m * c * item + w_bytes, mlp_ops, 2 * 49 * m * c)
+                row = _timed_row(dname, work, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                 shape=[BATCH, side, side, c], depth=depth,
+                                 first_ms=FIRST_F32_MS["convnext_block_fused"][stage])
+                results["convnext_block_fused"].append(row)
                 print(f"  convnext_block_fused {dname} ({BATCH},{side},{side},{c}): "
                       f"max|d|={err:.3g} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-                      f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+                      f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+                      f"{_f32_note(row)}", flush=True)
                 check(ok, f"convnext_block_fused matches its plain version "
                           f"({dname}, C={c})")
 
@@ -396,14 +468,15 @@ def phase_kernels(state: dict) -> None:
                 ok = torch.allclose(got.float(), want.float(), **TOL[dname])
                 ms = time_ms(lambda: fused_ln_mlp(h, res, *q))
                 plain_ms = time_ms(lambda: ln_mlp_reference(h, res, *q))
-                bound_ms, bound_by = _bound(
-                    3 * m * c * item + sum(t.numel() for t in q) * item, mlp_ops, dname)
-                results["fused_ln_mlp"].append(dict(
-                    dtype=dname, shape=[m, c], depth=depth, max_abs_err=err, ms=ms,
-                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
+                row = _timed_row(dname, (3 * m * c * item + sum(t.numel() for t in q) * item,
+                                         mlp_ops, 0), max_abs_err=err, ms=ms,
+                                 plain_ms=plain_ms, shape=[m, c], depth=depth,
+                                 first_ms=FIRST_F32_MS["fused_ln_mlp"][stage])
+                results["fused_ln_mlp"].append(row)
                 print(f"  fused_ln_mlp {dname} ({m},{c}): max|d|={err:.3g} "
                       f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-                      f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+                      f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+                      f"{_f32_note(row)}", flush=True)
                 check(ok, f"fused_ln_mlp matches its plain version ({dname}, C={c})")
 
                 # hidden 2C: the LN -> MLP half of an inceptionnext_*.r2 block
@@ -415,14 +488,15 @@ def phase_kernels(state: dict) -> None:
                 ok = torch.allclose(got.float(), want.float(), **TOL[dname])
                 ms = time_ms(lambda: fused_ln_mlp(h, res, *q2))
                 plain_ms = time_ms(lambda: ln_mlp_reference(h, res, *q2))
-                bound_ms, bound_by = _bound(
-                    3 * m * c * item + sum(t.numel() for t in q2) * item, mlp_ops / 2, dname)
-                results["fused_ln_mlp_r2"].append(dict(
-                    dtype=dname, shape=[m, c], depth=depth, max_abs_err=err, ms=ms,
-                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
+                row = _timed_row(dname, (3 * m * c * item + sum(t.numel() for t in q2) * item,
+                                         mlp_ops / 2, 0), max_abs_err=err, ms=ms,
+                                 plain_ms=plain_ms, shape=[m, c], depth=depth,
+                                 first_ms=FIRST_F32_MS["fused_ln_mlp_r2"][stage])
+                results["fused_ln_mlp_r2"].append(row)
                 print(f"  fused_ln_mlp hidden 2C {dname} ({m},{c}): max|d|={err:.3g} "
                       f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-                      f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+                      f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+                      f"{_f32_note(row)}", flush=True)
                 check(ok, f"fused_ln_mlp at hidden 2C matches its plain version "
                           f"({dname}, C={c})")
 
@@ -435,7 +509,8 @@ def phase_kernels(state: dict) -> None:
                                      **TOL[dname])
                 check(ok, f"both kernels match at a ragged size ({dname}, C={c}, "
                           f"B=7, M={mr})")
-                tm = lib.btsbot_tile_rows(c)
+                tm = (lib.btsbot_tf32x3_rows(c) if dtype == torch.float32
+                      else lib.btsbot_tile_rows(c))
                 batches = _ragged_batches(side, tm)
                 rows = [1, 3 * tm - 1, 3 * tm + 1]
                 ok = True
@@ -606,6 +681,7 @@ def phase_main_path(state: dict) -> None:
 
     # ---- the counted run of the main path
     _zero_kernel_counts()
+    by_variant = _variant_launches()
     timings, scores = {}, {}
     for name, sc in scorers.items():
         t0 = time.perf_counter()
@@ -622,6 +698,14 @@ def phase_main_path(state: dict) -> None:
     print(f"  launches: {launches} over {batches} batches", flush=True)
     check(launches["convnext_block_fused"] == 12 * batches,
           f"12 block-kernel launches per batch ({12 * batches})")
+    by_variant = _variant_diff(by_variant)
+    f32_batches = _n_batches(n_big) + _n_batches(len(ex_trips))
+    print(f"  launches by kernel and variant: {by_variant}", flush=True)
+    check(by_variant == {("convnext_block_fused", "tf32x3"): 12 * f32_batches,
+                         ("convnext_block_fused", "tuned"): 12 * (batches - f32_batches)},
+          f"every float32 launch ({12 * f32_batches}) on the tf32x3 kernels, every "
+          f"bfloat16 one on the tuned kernels")
+    state["launches_main_f32"] = by_variant[("convnext_block_fused", "tf32x3")]
 
     # ---- scores
     for name in ("f32", "bf16", "f32_ex", "bf16_ex"):
@@ -676,12 +760,16 @@ def phase_fast_path(state: dict) -> None:
         want = model(trips, meta).reshape(-1)
         torch.cuda.synchronize()
         _zero_kernel_counts()
+        by_variant = _variant_launches()
         got = fast_mm_convnext_logits(weights, trips, meta, FLAGSHIP_CONFIG)
         torch.cuda.synchronize()
         launches = _kernel_counts()
+        by_variant = _variant_diff(by_variant)
     state["launches_fast"] = launches
     print(f"  launches: {launches}", flush=True)
-    check(launches["fused_ln_mlp"] == 12, "12 fused_ln_mlp launches")
+    check(launches["fused_ln_mlp"] == 12
+          and by_variant == {("fused_ln_mlp", "tf32x3"): 12},
+          "12 fused_ln_mlp launches, all float32 on the tf32x3 kernel")
     err = (got - want).abs().max().item()
     print(f"  fast path vs module logits (f32): max|d|={err:.3g}", flush=True)
     check(torch.allclose(got, want, rtol=1e-4, atol=1e-5),
@@ -1026,7 +1114,7 @@ def phase_train(state: dict) -> None:
                   f"steps/s, {n * 1e3 / ms:.1f} alerts/s on {state['gpu']}", flush=True)
             del st
     splits = {}
-    for n, dname in ((TRAIN_BATCH, "float32"), (1024, "bfloat16")):
+    for n, dname in ((TRAIN_BATCH, "float32"), (1024, "float32"), (1024, "bfloat16")):
         sp = _step_split({**config, "compute_dtype": dname}, weights, batch_of(n))
         splits[(n, dname)] = sp
         print(f"  step split batch {n} {dname}: {sp['step']:.3f} ms = 12 block "
@@ -1175,6 +1263,25 @@ def _zero_kernel_counts() -> None:
     from btsbot_tpu_torch.ops.ln_mlp import fused_ln_mlp
     convnext_block_fused.launches = 0
     fused_ln_mlp.launches = 0
+
+
+def _variant_launches() -> dict:
+    """Launches so far of each (kernel, variant) in this run
+    (``launches_by_width`` is never reset): the difference over a stretch
+    says which kernels ran it."""
+    from btsbot_tpu_torch.ops.convnext_block import convnext_block_fused
+    from btsbot_tpu_torch.ops.ln_mlp import fused_ln_mlp
+    out: dict = {}
+    for name, fn in (("convnext_block_fused", convnext_block_fused),
+                     ("fused_ln_mlp", fused_ln_mlp)):
+        for (variant, _, _), n in fn.launches_by_width.items():
+            out[(name, variant)] = out.get((name, variant), 0) + n
+    return out
+
+
+def _variant_diff(before: dict) -> dict:
+    after = _variant_launches()
+    return {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
 
 
 def _serve_family(name, config, trips, meta, per_batch: int = 12) -> dict:
@@ -1875,8 +1982,9 @@ def _stage_shapes(kind: str) -> list:
 
 def _check_kernel(name, fn, ref, args, dname, work, results, key, where) -> None:
     """One kernel call against its plain version on the same inputs; its
-    time, the plain version's and the bound go to ``results[key]`` with
-    ``where`` (size and shape)."""
+    time, the plain version's and the bound of ``work`` (bytes, the
+    products' operations, the taps') go to ``results[key]`` with ``where``
+    (size and shape)."""
     import torch
     with torch.inference_mode():
         got = fn(*args)
@@ -1886,12 +1994,10 @@ def _check_kernel(name, fn, ref, args, dname, work, results, key, where) -> None
         ok = torch.allclose(got.float(), want.float(), **TOL[dname])
         ms = time_ms(lambda: fn(*args), iters=5, warmup=1)
         plain_ms = time_ms(lambda: ref(*args), iters=5, warmup=1)
-    bound_ms, bound_by = _bound(*work, dname)
-    results.setdefault(key, []).append(dict(
-        where, dtype=dname, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by))
+    row = _timed_row(dname, work, **where, max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    results.setdefault(key, []).append(row)
     check(ok, f"{name}: max|d|={err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by})")
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}){_f32_note(row)}")
 
 
 def _width_kernels(size: str, results: dict, batch: int = WIDTHS_BATCH,
@@ -1918,7 +2024,7 @@ def _width_kernels(size: str, results: dict, batch: int = WIDTHS_BATCH,
             where = {"size": size, "shape": [batch, side, side, c], "depth": depth}
             _check_kernel(f"convnext_block_fused {tag}", convnext_block_fused,
                           convnext_block_reference, (x, *p), dname,
-                          (2 * m * c * item + w_bytes, 16 * m * c * c + 2 * 49 * m * c),
+                          (2 * m * c * item + w_bytes, 16 * m * c * c, 2 * 49 * m * c),
                           results, ("convnext_block_fused", c, 4 * c), dict(where, variant=variant))
             h = depthwise_conv7_reference(x, p[0], p[1]).reshape(-1, c)
             res = x.reshape(-1, c)
@@ -1930,10 +2036,10 @@ def _width_kernels(size: str, results: dict, batch: int = WIDTHS_BATCH,
                 _check_kernel(
                     f"fused_ln_mlp {tag} hidden {ratio}C ({v_hid})",
                     fused_ln_mlp, ln_mlp_reference, (h, res, *q), dname,
-                    (3 * m * c * item + sum(t.numel() for t in q) * item, 4 * m * c * hid),
+                    (3 * m * c * item + sum(t.numel() for t in q) * item, 4 * m * c * hid, 0),
                     results, ("fused_ln_mlp", c, hid), dict(where, variant=v_hid))
             # ragged: a partial batch, and rows one past a tile edge
-            tm = (lib.btsbot_any_width_rows(m, c, 4 * c) if variant == "any_width"
+            tm = (lib.btsbot_tf32x3_rows(c) if variant == "tf32x3"
                   else lib.btsbot_tile_rows(c))
             mr = min(3 * tm + 1, m)
             with torch.inference_mode():
@@ -1950,16 +2056,18 @@ def _width_kernels(size: str, results: dict, batch: int = WIDTHS_BATCH,
         torch.cuda.empty_cache()
 
 
-# bf16 shapes off the model kinds' paths (batch, side, C, hidden / C): a
-# C = 640 map wider than 1x1 (the taps' weights read from device memory),
-# C = 520 (a 64-channel slab wholly past C, a partial hidden chunk), C = 1000
-# at 3x3, and maps too wide for the input tile at small C
-ODD_SHAPES = [(5, 7, 640, 4), (4, 5, 520, 3), (3, 3, 1000, 4), (2, 56, 40, 4), (1, 112, 96, 4)]
+# shapes off the model kinds' paths (batch, side, C, hidden / C): a C = 640
+# map wider than 1x1 (the taps' weights read from device memory), C = 520 (a
+# 64-channel slab wholly past C, a partial hidden chunk), C = 1000 at 3x3,
+# maps too wide for the input tile at small C, and few rows at C > 512 (64
+# and 1: the float32 kernels split the hidden chunks over blocks there)
+ODD_SHAPES = [(5, 7, 640, 4), (4, 5, 520, 3), (3, 3, 1000, 4), (2, 56, 40, 4), (1, 112, 96, 4),
+              (64, 1, 768, 4), (1, 1, 1024, 4)]
 
 
 def _odd_shapes() -> None:
-    """Both bf16 wgmma_any kernels against their plain versions at
-    ODD_SHAPES."""
+    """Both kernels against their plain versions at ODD_SHAPES: bf16 on the
+    wgmma_any kernels, f32 on the tf32x3 kernels."""
     import torch
     from btsbot_tpu_torch.ops import _build
     from btsbot_tpu_torch.ops.convnext_block import (
@@ -1967,22 +2075,29 @@ def _odd_shapes() -> None:
     from btsbot_tpu_torch.ops.ln_mlp import fused_ln_mlp, ln_mlp_reference
 
     lib = _build.library()
-    for b, side, c, ratio in ODD_SHAPES:
-        x, p = _block_inputs(side, c, torch.bfloat16, seed=c + side, batch=b, ratio=ratio)
+    for (b, side, c, ratio), dtype in [(shape, dt) for shape in ODD_SHAPES
+                                       for dt in (torch.bfloat16, torch.float32)]:
+        dname = str(dtype).split(".")[-1]
+        variant = "wgmma_any" if dtype == torch.bfloat16 else "tf32x3"
+        tiled = (lib.btsbot_block_tiles_input if variant == "wgmma_any"
+                 else lib.btsbot_tf32x3_tiles_input)(c, side, side)
+        x, p = _block_inputs(side, c, dtype, seed=c + side, batch=b, ratio=ratio)
         hid = ratio * c
         h = depthwise_conv7_reference(x, p[0], p[1]).reshape(-1, c)
         res = x.reshape(-1, c)
         with torch.inference_mode():
             got, want = convnext_block_fused(x, *p).float(), convnext_block_reference(x, *p).float()
             d_block = (got - want).abs().max().item()
-            ok = torch.allclose(got, want, **TOL["bfloat16"])
-            ok &= torch.allclose(fused_ln_mlp(h, res, *p[2:]).float(),
-                                 ln_mlp_reference(h, res, *p[2:]).float(), **TOL["bfloat16"])
+            ok = torch.allclose(got, want, **TOL[dname])
+            got, want = (fused_ln_mlp(h, res, *p[2:]).float(),
+                         ln_mlp_reference(h, res, *p[2:]).float())
+            d_mlp = (got - want).abs().max().item()
+            ok &= torch.allclose(got, want, **TOL[dname])
             torch.cuda.synchronize()
-        check(_build.kernel_variant(c, hid, torch.bfloat16) == "wgmma_any" and ok,
-              f"both wgmma_any kernels match at ({b},{side},{side},{c}) hidden {hid} "
-              f"(input tile {'kept' if lib.btsbot_block_tiles_input(c, side, side) else 'not kept'}"
-              f", block max|d|={d_block:.3g})")
+        check(_build.kernel_variant(c, hid, dtype) == variant and ok,
+              f"both {variant} kernels match at ({b},{side},{side},{c}) hidden {hid} "
+              f"(input tile {'kept' if tiled else 'not kept'}, max|d| block "
+              f"{d_block:.3g}, fused_ln_mlp {d_mlp:.3g})")
 
 
 def _width_model(kind: str, train: bool) -> None:
@@ -2457,7 +2572,7 @@ def _distill_kernels() -> dict:
                 _check_kernel(f"distill teacher block C={c} batch {batch} {dname}",
                               convnext_block_fused, convnext_block_reference, (x, *p), dname,
                               (2 * m * c * item + sum(t.numel() for t in p) * item,
-                               16 * m * c * c + 2 * 49 * m * c),
+                               16 * m * c * c, 2 * 49 * m * c),
                               results, ("convnext_block_fused", batch, dname), where)
             if "ln_mlp" in kernels:
                 q = _block_inputs(side, c, dtype, seed=c + 2, batch=1, ratio=2)[1][2:]
@@ -2466,7 +2581,7 @@ def _distill_kernels() -> dict:
                               f"{dname}", fused_ln_mlp, ln_mlp_reference,
                               (h, x.reshape(-1, c), *q), dname,
                               (3 * m * c * item + sum(t.numel() for t in q) * item,
-                               8 * m * c * c), results, ("fused_ln_mlp", batch, dname), where)
+                               8 * m * c * c, 0), results, ("fused_ln_mlp", batch, dname), where)
             del x, p
         torch.cuda.empty_cache()
     totals = {}
@@ -2474,7 +2589,7 @@ def _distill_kernels() -> dict:
         t_ops = sum(r["bound_ms"] * r["depth"] for r in rows if r["bound_by"] == "operations")
         t_bytes = sum(r["bound_ms"] * r["depth"] for r in rows if r["bound_by"] == "bytes")
         totals[key] = {k: sum(r[k] * r["depth"] for r in rows)
-                       for k in ("ms", "plain_ms", "bound_ms")}
+                       for k in ("ms", "plain_ms", "bound_ms", "bound3_ms") if k in rows[0]}
         totals[key].update(bound_by="operations" if t_ops > t_bytes else "bytes",
                            max_abs_err=max(r["max_abs_err"] for r in rows))
     return totals
@@ -2508,9 +2623,11 @@ def phase_distill(state: dict) -> None:
     # ---- both kernels at the distill path's shapes against their plain versions
     state["distill_kernels"] = _distill_kernels()
     for (name, n_b, dname), t in state["distill_kernels"].items():
+        three = f", bound 3xTF32 {t['bound3_ms']:.4f}" if "bound3_ms" in t else ""
         print(f"  distill path, {name} batch {n_b} {dname}: a forward's 12 launches "
               f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f}, bound {t['bound_ms']:.4f} "
-              f"({t['bound_by']}), max|d|={t['max_abs_err']:.3g} on {state['gpu']}", flush=True)
+              f"({t['bound_by']}){three}, first version: none recorded at batch {n_b}, "
+              f"max|d|={t['max_abs_err']:.3g} on {state['gpu']}", flush=True)
 
     run_dir = state["flagship_run"]
     tmp, data_dir = _smoke_split(state)
@@ -3065,6 +3182,28 @@ def _kernel_entry(name, source, replaces, launches, rows):
             "per": "one pico forward at batch 3072, bfloat16 (12 launches)"}
 
 
+def _f32_entry(name, replaces, launches, rows):
+    """The float32 kernel of one function (csrc/tf32x3.cu): a pico forward's
+    12 launches at batch 3072 against the bound of three TF32 products
+    (``bound_ms``) and the bound of exact float32 (``bound_f32_ms``)."""
+    f = [r for r in rows if r["dtype"] == "float32"]
+
+    def total(key):
+        return sum(r[key] * r["depth"] for r in f)
+
+    t_ops = sum(r["bound3_ms"] * r["depth"] for r in f if r["bound3_by"] == "operations")
+    t_bytes = sum(r["bound3_ms"] * r["depth"] for r in f if r["bound3_by"] == "bytes")
+    return {"name": f"{name} (float32)", "route": "cuda",
+            "source": "btsbot_tpu_torch/csrc/tf32x3.cu", "replaces": replaces,
+            "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in f),
+            "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound3_ms"),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes", "library_ms": None,
+            "bound_f32_ms": total("bound_ms"),
+            "per": "one pico forward at batch 3072, float32 (12 launches); bound_ms: the "
+                   "products as three TF32 products (495 / 3 TFLOP/s), the taps at 67 "
+                   "TFLOP/s; bound_f32_ms: every operation at 67 TFLOP/s"}
+
+
 def phase_report(state: dict) -> None:
     res = state["kernel_results"]
     fam = state["families"]
@@ -3110,6 +3249,17 @@ def phase_report(state: dict) -> None:
                                                   "max_abs_err")}
     kernels[1]["hidden_2c"]["per"] = ("one inceptionnext_pico.r2 forward at batch 3072, "
                                       "bfloat16 (12 launches)")
+    # the float32 kernels: launches of the main path's f32 scorer (the block)
+    # and of the f32 fast path (fused_ln_mlp)
+    f32_entries = [
+        _f32_entry("convnext_block_fused", "btsbot_tpu/ops/pallas_convnext.py:147",
+                   state["launches_main_f32"], res["convnext_block_fused"]),
+        _f32_entry("fused_ln_mlp", "btsbot_tpu/ops/pallas_mlp.py:99",
+                   state["launches_fast"]["fused_ln_mlp"], res["fused_ln_mlp"]),
+    ]
+    r2 = _f32_entry("fused_ln_mlp", "", 0, res["fused_ln_mlp_r2"])
+    f32_entries[1]["hidden_2c"] = {k: r2[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                      "bound_f32_ms", "max_abs_err")}
     # nano's stage shapes at the serving batch (phase "widths"), a forward's
     # 14 launches in bf16 on the wgmma_any kernels
     for entry, name in zip(kernels, ("convnext_block_fused", "fused_ln_mlp")):
@@ -3168,7 +3318,7 @@ def phase_report(state: dict) -> None:
         f"{t['fusion_cli_s']:.1f} s; maxvit_tiny_rw_160 bf16 {t['rate160']:.1f} alerts/s "
         f"on {state['gpu']}", flush=True)
     # the widths phase: each size's forward, and every width each kernel was
-    # launched at in this run (by variant: tuned, wgmma_any or any_width)
+    # launched at in this run (by variant: tuned, wgmma_any or tf32x3)
     from btsbot_tpu_torch.ops import _build
     from btsbot_tpu_torch.ops.convnext_block import convnext_block_fused
     from btsbot_tpu_torch.ops.ln_mlp import fused_ln_mlp
@@ -3189,7 +3339,17 @@ def phase_report(state: dict) -> None:
         entry["sources_by_variant"] = {
             "tuned": f"btsbot_tpu_torch/csrc/{key}.cu",
             "wgmma_any": f"btsbot_tpu_torch/csrc/{key}.cu",
-            "any_width": "btsbot_tpu_torch/csrc/any_width.cu"}
+            "tf32x3": "btsbot_tpu_torch/csrc/tf32x3.cu"}
+        check(set(by) <= set(entry["sources_by_variant"]) and "tf32x3" in by,
+              f"{entry['name']}: launched only by its kernels ({sorted(by)}), float32 on "
+              f"tf32x3 at widths {entry['widths'].get('tf32x3')}")
+    for entry, base in zip(f32_entries, kernels):
+        entry["max_abs_err"] = max([entry["max_abs_err"]] + [
+            r["max_abs_err"] for res_ in (state["width_results"], state["nano_results"])
+            for (name, _, _), rows in res_.items() if name == base["name"] for r in rows
+            if r["dtype"] == "float32"])
+        entry["launches_by_width"] = base["launches_by_width"]["tf32x3"]
+    kernels += f32_entries
     _report_widths(state)
     _report_daemon(state)
     _report_lifecycle(state)
@@ -3213,7 +3373,9 @@ def _report_widths(state: dict) -> None:
             print(f"    {r['size']:5s} {r['kernel']:20s} {str(tuple(r['shape'])):19s} "
                   f"{r['dtype']:8s} {r['variant']:9s} "
                   f"{r['ms']:.4f} / {r['plain_ms']:.4f} / {r['bound_ms']:.4f} "
-                  f"({r['bound_by']}) max|d|={r['max_abs_err']:.3g}", flush=True)
+                  f"({r['bound_by']}) max|d|={r['max_abs_err']:.3g}"
+                  + (f" bound 3xTF32 {r['bound3_ms']:.4f}" if "bound3_ms" in r else ""),
+                  flush=True)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "smoke_widths.json"), "w") as f:
         json.dump({"card": state["gpu"], "batch": WIDTHS_BATCH, "rows": rows}, f, indent=1)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the tuned bfloat16 block kernels of this checkout against another
+"""Time the bfloat16 block kernels of this checkout against another
 checkout's, on one card, in one process.
 
     python3 scripts/compare_tuned_kernels.py --baseline DIR
@@ -10,12 +10,14 @@ parent commit unpacked with ``git archive``).  Each checkout's
 ``ops/_build.py``, both libraries are loaded, and the tuned entry points
 (``btsbot_convnext_block`` and ``btsbot_ln_mlp``, C = 64 / 128 / 256 / 512)
 are launched on the same inputs at the four pico stage shapes at batch 3072
-in bfloat16 (hidden 4C), in turns: baseline, this, this, baseline, three
-times.  Each turn is the mean of 20 launches between CUDA events after 3
-warm-up launches.  Prints each stage's mean time for both, a pico forward's
-12 launches (depths 2 / 2 / 6 / 2) for both and their ratio, the largest
-difference between the two libraries' outputs, the card's name and power
-limit, and a JSON line with all of it.
+in bfloat16 (hidden 4C), and the padded ones (``btsbot_convnext_block_wgmma``,
+``btsbot_ln_mlp_wgmma``) at nano's four (C = 80 / 160 / 320 / 640), in
+turns: baseline, this, this, baseline, three times.  Each turn is the mean
+of 20 launches between CUDA events after 3 warm-up launches.  Prints each
+stage's mean time for both, a forward's launches (pico's depths 2 / 2 / 6 /
+2, nano's 2 / 2 / 8 / 2) for both and their ratio, the largest difference
+between the two libraries' outputs, the card's name and power limit, and a
+JSON line with all of it.
 """
 
 from __future__ import annotations
@@ -29,8 +31,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PICO_STAGES = [(15, 64, 2), (7, 128, 2), (3, 256, 6), (1, 512, 2)]  # side, C, depth
+NANO_STAGES = [(15, 80, 2), (7, 160, 2), (3, 320, 8), (1, 640, 2)]
 BATCH = 3072
-ENTRIES = ("btsbot_convnext_block", "btsbot_ln_mlp")
+# entry point -> the stages it is compared at
+ENTRIES = {"btsbot_convnext_block": PICO_STAGES, "btsbot_ln_mlp": PICO_STAGES,
+           "btsbot_convnext_block_wgmma": NANO_STAGES, "btsbot_ln_mlp_wgmma": NANO_STAGES}
 
 
 def load(root: Path):
@@ -69,7 +74,7 @@ def launcher(lib, name: str, x, params, out):
     hidden = params[4].shape[0]
     stream = torch.cuda.current_stream().cuda_stream
     fn = getattr(lib, name)
-    if name == "btsbot_convnext_block":
+    if name.startswith("btsbot_convnext_block"):
         ptrs = [x.data_ptr()] + [p.data_ptr() for p in params]
         args = ptrs + [out.data_ptr(), b, h, w, c, hidden, 1, stream]
     else:  # h = x's rows, shortcut = x's rows, then the block's params from ln_w on
@@ -115,9 +120,9 @@ def main() -> int:
     libs = {"baseline": load(args.baseline.resolve()), "this": load(ROOT)}
     result = {"card": card, "batch": BATCH, "dtype": "bfloat16"}
     with torch.inference_mode():
-        for name in ENTRIES:
+        for name, shapes in ENTRIES.items():
             stages = []
-            for side, c, depth in PICO_STAGES:
+            for side, c, depth in shapes:
                 x, params = inputs(side, c, seed=c)
                 outs = {k: torch.empty_like(x) for k in libs}
                 calls = {k: launcher(lib, name, x, params, outs[k]) for k, lib in libs.items()}
@@ -138,7 +143,8 @@ def main() -> int:
             result[name] = {"stages": stages, "forward_ms": fwd,
                             "ratio": fwd["this"] / fwd["baseline"],
                             "max_abs_diff": max(s["max_abs_diff"] for s in stages)}
-            print(f"{name}: a pico forward's 12 launches: baseline {fwd['baseline']:.4f} ms, "
+            print(f"{name}: a forward's {sum(d for _, _, d in shapes)} launches: baseline "
+                  f"{fwd['baseline']:.4f} ms, "
                   f"this {fwd['this']:.4f} ms (ratio {fwd['this'] / fwd['baseline']:.4f}) "
                   f"on {card}", flush=True)
     print(json.dumps(result), flush=True)

@@ -5,10 +5,11 @@ card every ConvNeXt and InceptionNeXt size but pico raised.  Held here in
 pure Python, with the kernel library replaced by a recorder and the input
 standing in for a CUDA tensor: both wrappers accept every C of
 ``CONVNEXT_CONFIGS`` at every hidden width k·C an ``.r<k>`` kind can ask
-for, and send it by width and type to the tuned kernels (C = 64, 128,
-256, 512), or at every other width to ``csrc/any_width.cu`` in float32 and
-to the padded tensor-core kernels ("wgmma_any") in bfloat16, counting each
-launch by variant and width.  The kernels' arithmetic is held on the card by ``chip_smoke.py``
+for, and send it by width and type: float32 at every width to the
+three-TF32-product tensor-core kernels of ``csrc/tf32x3.cu`` ("tf32x3",
+with a workspace for the split weights), bfloat16 to the tuned kernels (C =
+64, 128, 256, 512) or at every other width to the padded tensor-core
+kernels ("wgmma_any"), counting each launch by variant and width.  The kernels' arithmetic is held on the card by ``chip_smoke.py``
 (phase "widths").  Beside that: the plain path's f32 logits of mm_ConvNeXt
 at the femto and nano widths against flax on the same weights, within
 atol 1e-5.
@@ -36,7 +37,8 @@ class _OnCard(torch.Tensor):
 
 class _Recorder:
     """Stands in for the kernel library: each entry point records its
-    (name, C, hidden) and reports success."""
+    (name, C, hidden) and reports success; the float32 kernels' workspace
+    query answers one float."""
 
     def __init__(self):
         self.calls = []
@@ -44,9 +46,12 @@ class _Recorder:
     def __getattr__(self, name):
         if not name.startswith("btsbot_"):
             raise AttributeError(name)
+        if name == "btsbot_tf32x3_workspace_floats":  # a size query, not a launch
+            return lambda m, c, hidden, taps: 1
 
         def entry(*args):
-            c, hidden = args[-4], args[-3]  # ..., C, hidden, is_bf16, stream
+            # ..., C, hidden, [is_bf16: the bf16 entry points,] stream
+            c, hidden = args[-3:-1] if name.endswith("_tf32x3") else args[-4:-2]
             self.calls.append((name, c, hidden))
             return 0
         return entry
@@ -87,9 +92,9 @@ def test_both_wrappers_launch_every_width(c, dtype, recorder):
         out = port_mlp._FusedLnMlp.apply(rows, rows, *args[3:])
         assert out.shape == rows.shape
     variant = _build.kernel_variant(c, 4 * c, dtype)
-    suffix = {"tuned": "", "any_width": "_any", "wgmma_any": "_wgmma"}[variant]
-    assert variant == ("tuned" if c in _build.TUNED_WIDTHS
-                       else "any_width" if dtype == torch.float32 else "wgmma_any")
+    suffix = {"tuned": "", "tf32x3": "_tf32x3", "wgmma_any": "_wgmma"}[variant]
+    assert variant == ("tf32x3" if dtype == torch.float32
+                       else "tuned" if c in _build.TUNED_WIDTHS else "wgmma_any")
     want = []
     for k in RATIOS:
         want += [(f"btsbot_convnext_block{suffix}", c, k * c),
@@ -101,18 +106,21 @@ def test_both_wrappers_launch_every_width(c, dtype, recorder):
 
 
 def test_kernel_variant_by_width():
-    for dtype, other in ((torch.float32, "any_width"), (torch.bfloat16, "wgmma_any")):
-        assert [_build.kernel_variant(c, 4 * c, dtype) for c in WIDTHS] == [
-            "tuned" if c in (64, 128, 256, 512) else other for c in WIDTHS]
-        assert _build.kernel_variant(64, 64 * 3, dtype) == "tuned"
+    assert [_build.kernel_variant(c, 4 * c, torch.float32) for c in WIDTHS] == [
+        "tf32x3"] * len(WIDTHS)
+    assert [_build.kernel_variant(c, 4 * c, torch.bfloat16) for c in WIDTHS] == [
+        "tuned" if c in (64, 128, 256, 512) else "wgmma_any" for c in WIDTHS]
+    for dtype, tuned, other in ((torch.float32, "tf32x3", "tf32x3"),
+                                (torch.bfloat16, "tuned", "wgmma_any")):
+        assert _build.kernel_variant(64, 64 * 3, dtype) == tuned
         assert _build.kernel_variant(128, 200, dtype) == other  # hidden not in 64-units
         for c, hidden in ((36, 144), (40, 0), (0, 64), (64, 100)):
             with pytest.raises(ValueError, match="multiples of 8"):
                 _build.kernel_variant(c, hidden, dtype)
-    # nothing takes bf16 past 1024 channels, or another type
-    assert _build.kernel_variant(1032, 4 * 1032, torch.float32) == "any_width"
-    with pytest.raises(ValueError, match="up to 1024"):
-        _build.kernel_variant(1032, 4 * 1032, torch.bfloat16)
+    # nothing takes either type past 1024 channels, or another type
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="up to 1024"):
+            _build.kernel_variant(1032, 4 * 1032, dtype)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         _build.kernel_variant(64, 256, torch.float16)
 
