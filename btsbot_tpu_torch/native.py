@@ -4,8 +4,9 @@ Loads ``cpp/libbtsbot_native.so`` at the repository root (built with
 ``make -C cpp``, and built on first use when a toolchain is present) and
 exposes ``decode_stamps(blobs) -> (stamps, status)``.  When the library
 cannot be built or loaded, the host falls back to the port's own Python
-decoder (``data.alerts``); ``decoder()`` says which one runs.  Either way
-this is host work: the decoded stamps go to the card afterwards.
+decoder (``data.alerts``); ``native_available()`` and ``decoder()`` say
+which one runs.  Either way this is host work: the decoded stamps go to the
+card afterwards.
 """
 
 from __future__ import annotations
@@ -63,9 +64,14 @@ def load_library():
     return _lib
 
 
+def native_available() -> bool:
+    """True when the C++ decoder is loaded."""
+    return load_library() is not None
+
+
 def decoder() -> str:
     """'native' when the C++ decoder is loaded, else 'python'."""
-    return "native" if load_library() is not None else "python"
+    return "native" if native_available() else "python"
 
 
 def decode_stamps(blobs: list[bytes], out_size: int = STAMP_SIZE,

@@ -73,6 +73,9 @@ _SIGNATURES = {
     # C, H, W -> 1 if the bf16 block kernel keeps the input tile of such a
     # map in shared memory, 0 if it reads x from device memory
     "btsbot_block_tiles_input": [ctypes.c_int] * 3,
+    # the int8 path's depthwise step (csrc/int8_dwconv.cu): x, taps, tap
+    # scales, bias, out, s_x, B, H, W, C, is_bf16, stream
+    "btsbot_int8_dwconv": [_P] * 5 + [ctypes.c_float] + [ctypes.c_int] * 5 + [_P],
 }
 
 # entry points that return something other than a CUDA error code

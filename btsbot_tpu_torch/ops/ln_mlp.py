@@ -20,7 +20,8 @@ Port of btsbot_tpu/ops/pallas_mlp.py.  Three things live here:
   ``fast_mm_convnext_logits`` — a full eval-mode mm_ConvNeXt forward from a
   reference-named state dict, with the depthwise, stem and downsample
   convolutions outside any kernel and every block's LN → MLP half through
-  ``fused_ln_mlp``.
+  ``fused_ln_mlp``; its heads (``convnext_head_logits``) also end the int8
+  forward of ``ops.quantized``.
 
 Weights keep the layout of ``nn.Linear`` (fc1 (4C, C), fc2 (C, 4C)).
 """
@@ -170,6 +171,22 @@ def fast_mm_convnext_logits(state_dict: Mapping, images, metadata, config):
     spec = convnext_spec(config.get("model_kind", "convnext_nano.d1h_in1k"))
 
     x = fast_convnext_backbone(p, "convnext_backbone", images, spec["depths"])
+    return convnext_head_logits(p, x, metadata, config)
+
+
+def convnext_head_logits(p: Mapping, x, metadata, config):
+    """Logits (N,) of an eval-mode ConvNeXt / mm_ConvNeXt from its final
+    backbone map x (N, h, w, C), in x's type, from reference-named state-dict
+    tensors ``p``: image-only, pool → LN → fc1 → GELU → fc2 → GELU → out;
+    multi-modal, pool → LN ("LS" versions) or a flatten, beside the metadata
+    branch, then the combined head."""
+    dtype = x.dtype
+    if config["model_name"] == "ConvNeXt":
+        x = _layernorm(x.mean(dim=(1, 2)), p["convnext.head.1.weight"],
+                       p["convnext.head.1.bias"])
+        x = gelu(_dense(x, p, "convnext.head.3"))
+        x = gelu(_dense(x, p, "convnext.head.5"))
+        return _dense(x, p, "convnext.head.8").reshape(-1)
     if "LS" in config.get("train_data_version", ""):
         x = x.mean(dim=(1, 2))
         x = _layernorm(x, p["convnext_backbone.head.1.weight"],

@@ -26,11 +26,12 @@ def clean_nonfinite(x: torch.Tensor) -> torch.Tensor:
     return torch.nan_to_num(x)
 
 
-def l2_normalize_cutouts(triplets: torch.Tensor) -> torch.Tensor:
-    """Divide each (sample, channel) cutout by its Frobenius norm; a zero
-    norm (an all-zero cutout, dropped by ``corrupt_mask``) divides by 1."""
+def l2_normalize_cutouts(triplets: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    """Divide each (sample, channel) cutout by its Frobenius norm where that
+    norm exceeds ``eps``, else by 1 (a zero norm: an all-zero cutout,
+    dropped by ``corrupt_mask``)."""
     norm = torch.sqrt(triplets.square().sum(dim=(1, 2), keepdim=True))
-    return triplets / torch.where(norm > 0, norm, torch.ones_like(norm))
+    return triplets / torch.where(norm > eps, norm, torch.ones_like(norm))
 
 
 def corrupt_mask(raw_triplets: torch.Tensor) -> torch.Tensor:

@@ -22,9 +22,12 @@ from pathlib import Path
 from ..ops import _build
 
 
-def enable(cache_dir) -> Path:
+def enable(cache_dir, min_compile_time_s: float = 0.5) -> Path:
     """Build and load the kernel library in ``cache_dir`` from now on;
-    returns the directory."""
+    returns the directory.  ``min_compile_time_s`` is the JAX package's
+    threshold for caching an XLA executable; it is accepted for the same
+    call to work here and has no meaning for the ``nvcc`` build, which
+    caches the whole library whatever its build took."""
     path = Path(cache_dir).expanduser().resolve()
     _build.BUILD_DIR = path
     return path

@@ -26,8 +26,9 @@ convnext_pico, 63×63×3 triplets + 25 metadata features) on the card:
    edge, the tile's height asked of the built library), and maps too wide
    for the block kernel to keep its input tile in shared memory;
 3. the main path: ``AlertScorer`` (bf16 and f32, batch 3072) on 2×3072+500
-   alerts and on the example alerts, and ``AlertStreamScorer`` on 2×3072
-   synthetic packets; 12 block-kernel launches per batch, every float32 one
+   alerts and on the port's example alerts (``btsbot_tpu_torch/example_data``),
+   and ``AlertStreamScorer`` on 2×3072 synthetic packets; 12 block-kernel
+   launches per batch, every float32 one
    on the "tf32x3" kernels; f32 scores within
    1e-5 of the plain model on the card, bf16 within 0.01 of f32, stream
    drop masks identical to the array path's;
@@ -153,14 +154,34 @@ convnext_pico, 63×63×3 triplets + 25 metadata features) on the card:
     CLI's seconds, the ONNX file's size, the numpy evaluator's alerts/s
     against the card's f32 forward on the same 256 alerts (information
     only);
-16. a ``{"kernels": [...]}`` line (launches by path and by variant and
+16. int8, the quantized path (``ops/quantized.py``): the depthwise kernel
+    (``csrc/int8_dwconv.cu``) against its plain version at every stage
+    shape of pico and nano at batch 3072 in bf16 and f32, bit for bit
+    (max|d| = 0), with its time, the plain version's, cuDNN's float32
+    depthwise conv over the integer-valued quantized tensor (the same
+    accumulators) and the bound (bytes at 3.35 TB/s, or 49 multiply-adds an
+    output at the FP32 pipe's rate from the card's SM count and top clock);
+    then the flagship and mm_ConvNeXt-nano on the main path's weights,
+    calibrated on 512 unit-norm triplets and scored on 3072 others: 12 / 14
+    counted kernel launches a forward, finite logits, every score within
+    0.015 of the port's bf16 model (``verify_quantized_parity``), int8
+    alerts/s and the forward split into the depthwise launches, the int8
+    GEMMs, the quantize and the dequantize passes and the rest;
+17. examples: ``examples/inference_example_torch.py --local`` (the shipped
+    example model's f32 scores, TF32 off, within 1e-5 of its golden scores
+    in ``btsbot_tpu_torch/example_data``), ``serving_daemon_torch.py
+    --synthetic 2000`` (every packet scored) and ``train_quickstart_torch.py
+    --epochs 1 --n 512`` (a ``best_model.pth``, finite val scores), each in
+    this process;
+18. a ``{"kernels": [...]}`` line (launches by path and by variant and
     width, the source of each variant, a pico and a nano forward's
     launches against their bound; the float32 kernels of ``csrc/tf32x3.cu``
     as entries of their own: a pico f32 forward's 12 launches against both
-    bounds), alerts/s for each scorer and the daemon
-    (information only), the per-width times in a table and in
-    ``build/smoke_widths.json``;
-17. the card's name and power limit, then as the last line
+    bounds; ``int8_dwconv``: a pico int8 forward's 12 launches against
+    their bound and cuDNN's), alerts/s for each scorer and the daemon, int8
+    beside bf16 and f32 (information only), the per-width times in a table
+    and in ``build/smoke_widths.json``;
+19. the card's name and power limit, then as the last line
     ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero and prints no result.  So does a host
@@ -169,6 +190,7 @@ without CUDA, and a directory without the port beside this script.
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import gzip
 import json
@@ -190,7 +212,8 @@ PEAK_OPS = {"bfloat16": 989e12,  # dense bf16 tensor cores
             "float32": 67e12,    # float32 outside the tensor cores (no TF32)
             # the float32 kernels' products: three dense TF32 tensor-core
             # products for each (csrc/tf32x3.cu)
-            "tf32x3": 495e12 / 3}
+            "tf32x3": 495e12 / 3,
+            "int8": 1979e12}     # dense int8 tensor cores (a multiply-add is 2 ops)
 # The first version's float32 kernels (float FMAs on the CUDA cores) at the
 # four pico stage shapes at batch 3072, ms a launch: recorded on an NVIDIA
 # H100 80GB HBM3 at 700 W (PERF.md, the kernel table's brackets), not
@@ -231,7 +254,7 @@ FLAGSHIP_CONFIG = {
     "learning_rate": 1e-4, "beta_1": 0.99, "beta_2": 0.99, "batch_size": 64,
     "epochs": 10, "warmup_epochs": 1, "patience": 5, "random_seed": 2,
 }
-EXAMPLE_DIR = os.path.join(ROOT, "btsbot_tpu", "example_data")
+EXAMPLE_DIR = os.path.join(ROOT, "btsbot_tpu_torch", "example_data")
 
 
 class PhaseFailed(Exception):
@@ -293,6 +316,7 @@ def phase_setup(state: dict) -> None:
     _build.library()
     secs = time.perf_counter() - t0
     info = _build.build_info
+    state["ptxas"] = info.get("ptxas", "")  # a later build() call finds the library and clears it
     print(f"kernels built in {secs:.1f} s (compiled={info.get('compiled')}) "
           f"into {_build.BUILD_DIR}", flush=True)
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", info.get("ptxas", ""))]
@@ -322,12 +346,13 @@ def phase_setup(state: dict) -> None:
           f"widths) hold HGMMA instructions")
     f32 = {k: n for k, n in counts.items() if "tf32x3_kernel" in k}
     print(f"  HGMMA instructions in the float32 kernels: {sorted(f32.values())}", flush=True)
-    check(len(f32) == F32_KERNELS and min(f32.values()) > 0
-          and len(counts) == BF16_KERNELS + F32_KERNELS + 2,
+    int8 = [k for k in counts if "int8_dwconv_kernel" in k]
+    check(len(f32) == F32_KERNELS and min(f32.values()) > 0 and len(int8) == INT8_KERNELS
+          and len(counts) == BF16_KERNELS + F32_KERNELS + INT8_KERNELS + 2,
           f"all {F32_KERNELS} float32 kernels (fused_ln_mlp and the block kernel, x 1-4 "
           f"blocks of 32 output columns a warpgroup and the 128-row tile) hold HGMMA "
-          f"instructions, and the library holds no other kernel but the weight split and "
-          f"the split-sum pass")
+          f"instructions, and the library holds no other kernel but the weight split, "
+          f"the split-sum pass and the int8 depthwise kernel in both types")
 
 
 # ------------------------------ phase 2 ------------------------------
@@ -3161,6 +3186,370 @@ def phase_lifecycle(state: dict) -> None:
           f"{LIFECYCLE_CROP}")
 
 
+# ------------------------------ int8 ------------------------------
+
+INT8_CAL = 512        # calibration triplets
+INT8_TOL = 0.015      # |Δscore| against the bf16 model (verify_quantized_parity's default)
+INT8_HOST = 256       # alerts of the float32 replay of the card's forward on the host
+INT8_X_ATOL = 1e-5    # |Δ| of a depthwise input there (stage 0's stem LN ulps, x up to ~10)
+INT8_F32_ATOL = 1e-5  # |Δlogit| there (the same backbone features; the heads' ulps)
+INT8_MUTANT = "s0b0_fc2"  # the weight scale doubled to show that the replay can fail
+INT8_KERNELS = 2      # csrc/int8_dwconv.cu: float32 and bfloat16 inputs
+INT8_FORWARDS = {"mm_ConvNeXt-pico (flagship)": (FLAGSHIP_CONFIG, "convnext_pico", 12),
+                 "mm_ConvNeXt-nano": (NANO_CONFIG, "convnext_nano", NANO_LAUNCHES)}
+INT8_BOUND = ("bytes (x read once, out written once) at 3.35 TB/s, or 49 int8 multiply-adds "
+              "(98 ops) an output at the dense int8 tensor-core peak, 1,979 TOP/s")
+
+
+def _fma_rate() -> tuple[float, str]:
+    """The FP32 pipe's multiply-adds a second (the unit the int8 depthwise
+    kernel sums its taps on): SMs x 128 lanes x the card's top SM clock.
+    Printed as the kernel's own arithmetic floor, not as its bound."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    rate = sms * 128 * mhz * 1e6
+    return rate, f"{sms} SMs x 128 FP32 lanes x {mhz:.0f} MHz = {rate / 1e12:.2f} T FMA/s"
+
+
+def _int8_dw_inputs(side: int, c: int, dtype, seed: int):
+    import torch
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randn(BATCH, side, side, c, device=DEVICE, generator=g).to(dtype)
+    wq = torch.randint(-127, 128, (7, 7, c), device=DEVICE, dtype=torch.int8, generator=g)
+    ws = torch.rand(c, device=DEVICE, generator=g) * 0.01 + 1e-4
+    bias = torch.randn(c, device=DEVICE, generator=g)
+    return x, float(x.float().abs().amax() / torch.tensor(127.0, device=DEVICE)), wq, ws, bias
+
+
+def _int8_dw_rows(kind: str, fma_rate: float) -> list:
+    """The kernel against its plain version at each stage shape of ``kind``
+    at batch BATCH in both types (bit for bit), with its time, the plain
+    version's, cuDNN's float32 depthwise conv over the integer-valued
+    quantized tensor (the same accumulators), the bound and the taps' time
+    on the FP32 pipe alone (the unit the kernel sums them on)."""
+    import torch
+    import torch.nn.functional as F
+    from btsbot_tpu_torch.ops import quantized as tq
+
+    rows = []
+    for side, c, depth in _stage_shapes(kind):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, s_x, wq, ws, bias = _int8_dw_inputs(side, c, dtype, seed=side * 1000 + c)
+            got = tq._launch_int8_dwconv(x, s_x, wq, ws, bias)
+            want = tq.int8_dwconv_reference(x, s_x, wq, ws, bias)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            dname = str(dtype).split(".")[1]
+            check(err == 0.0, f"int8_dwconv {kind} ({BATCH},{side},{side},{c}) {dname}: "
+                              f"bit for bit with its plain version")
+            xq = tq.quantize_act(x, s_x).float().permute(0, 3, 1, 2)  # channels_last view
+            wf = wq.permute(2, 0, 1).unsqueeze(1).float()
+            n = x.numel()
+            t_bytes = 2 * n * x.element_size() / HBM_BYTES_PER_S * 1e3
+            t_ops = 2 * 49 * n / PEAK_OPS["int8"] * 1e3
+            rows.append(dict(
+                kind=kind, shape=(BATCH, side, side, c), depth=depth, dtype=dname,
+                max_abs_err=err,
+                ms=time_ms(lambda: tq._launch_int8_dwconv(x, s_x, wq, ws, bias)),
+                plain_ms=time_ms(lambda: tq.int8_dwconv_reference(x, s_x, wq, ws, bias)),
+                library_ms=time_ms(lambda: F.conv2d(xq, wf, None, 1, 3, groups=c)),
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                fp32_pipe_ms=49 * n / fma_rate * 1e3))
+            r = rows[-1]
+            print(f"  int8_dwconv {kind} {r['shape']} {dname}: {r['ms']:.4f} ms (plain "
+                  f"{r['plain_ms']:.4f}, cuDNN f32 accumulators {r['library_ms']:.4f}, bound "
+                  f"{r['bound_ms']:.4f} by {r['bound_by']}, {r['bound_ms'] / r['ms']:.0%}; "
+                  f"the taps on the FP32 pipe alone {r['fp32_pipe_ms']:.4f})", flush=True)
+    return rows
+
+
+@contextlib.contextmanager
+def _patched(module, **fns):
+    """``module``'s functions replaced by ``fns`` for the block's length."""
+    saved = {name: getattr(module, name) for name in fns}
+    for name, fn in fns.items():
+        setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+def _int8_split(qp, images, meta, iters: int = 5) -> dict:
+    """The int8 forward at batch BATCH split with CUDA events into its
+    depthwise launches, the int8 GEMMs (``torch._int_mm``: stem, downsample,
+    fc1, fc2), the quantize and the dequantize passes, and the rest (LN,
+    GELU, γ and residual, the patchify copies, the heads).  The spans wrap
+    four functions of ``ops.quantized``; each span's calls a forward are
+    checked against the forward's structure, so a renamed or inlined
+    function fails here instead of moving its time into the rest."""
+    import torch
+    from btsbot_tpu_torch.ops import quantized as tq
+
+    spans = {"depthwise launches": [], "int8 GEMMs": [], "quantize passes": [],
+             "dequantize passes": []}
+    wrapped = {"_launch_int8_dwconv": "depthwise launches", "int8_matmul": "int8 GEMMs",
+               "quantize_act": "quantize passes", "_dequant": "dequantize passes"}
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            spans[key].append((start, end))
+            return out
+        return run
+
+    tq.quantized_convnext_logits(qp, images, meta)
+    whole = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    with _patched(tq, **{name: timed(getattr(tq, name), key) for name, key in wrapped.items()}):
+        torch.cuda.synchronize()
+        whole[0].record()
+        for _ in range(iters):
+            tq.quantized_convnext_logits(qp, images, meta)
+        whole[1].record()
+        torch.cuda.synchronize()
+    out = {k: sum(a.elapsed_time(b) for a, b in v) / iters for k, v in spans.items()}
+    out["calls"] = {k: len(v) / iters for k, v in spans.items()}
+    blocks, stages = sum(qp["depths"]), len(qp["depths"])
+    gemms = stages + 2 * blocks  # the stem, the downsamples, each block's fc1 and fc2
+    want = {"depthwise launches": blocks, "int8 GEMMs": gemms, "quantize passes": gemms,
+            "dequantize passes": gemms}
+    check(out["calls"] == want, f"the int8 forward's split wraps {want} calls a forward "
+                                f"({out['calls']})")
+    out["forward"] = whole[0].elapsed_time(whole[1]) / iters
+    out["rest"] = out["forward"] - sum(out[k] for k in spans)
+    return out
+
+
+def _qparams_on(qp: dict, device: str) -> dict:
+    import torch
+    return {**qp, "device": torch.device(device),
+            "weights": {k: (wq.to(device), ws.to(device)) for k, (wq, ws) in qp["weights"].items()},
+            "state_dict": {k: v.to(device) for k, v in qp["state_dict"].items()}}
+
+
+def _int8_card_trace(qp, images, meta) -> tuple:
+    """The card's float32 int8 forward, with the input and the output of
+    each depthwise launch and each int8 GEMM copied to the host in call
+    order, and its logits."""
+    import torch
+    from btsbot_tpu_torch.ops import quantized as tq
+
+    trace = {"dw": [], "mm": []}
+    launch, matmul = tq._launch_int8_dwconv, tq.int8_matmul
+
+    def dw(x, *args):
+        out = launch(x, *args)
+        trace["dw"].append((x.cpu(), out.cpu()))
+        return out
+
+    def mm(a, w):
+        out = matmul(a, w)
+        trace["mm"].append((a.cpu(), out.cpu()))
+        return out
+
+    with _patched(tq, _launch_int8_dwconv=dw, int8_matmul=mm):
+        logits = tq.quantized_convnext_logits(qp, images, meta, dtype=torch.float32)
+    return trace, logits.cpu()
+
+
+def _int8_replay(host_qp, images, meta, trace, logits) -> dict:
+    """The host's float32 int8 forward (the plain depthwise step, the
+    host's ``_int_mm``) teacher-forced with the card's trace: each
+    depthwise step and each int8 GEMM compares the host's own input with
+    the card's, then takes the card's, and its result must equal the
+    card's bit for bit.  An ulp of a LayerNorm or a GELU between the two
+    devices flips an int8 value by one step at most and leaves the forced
+    forward's features equal; a wrong scale or operand on the card moves a
+    depthwise input or an int8 value further."""
+    import torch
+    from btsbot_tpu_torch.ops import quantized as tq
+
+    dws, mms = list(trace["dw"]), list(trace["mm"])
+    st = {"x": 0.0, "step": 0, "flips": 0, "values": 0, "exact": True}
+    reference, matmul = tq.int8_dwconv_reference, tq.int8_matmul
+
+    def dw(x, *args):
+        card_x, card_out = dws.pop(0)
+        st["x"] = max(st["x"], float((x - card_x).abs().max()))
+        out = reference(card_x, *args)
+        st["exact"] &= torch.equal(out, card_out)
+        return out
+
+    def mm(a, w):
+        card_a, card_out = mms.pop(0)
+        d = (a.int() - card_a.int()).abs()
+        st["step"] = max(st["step"], int(d.max()))
+        st["flips"] += int((d > 0).sum())
+        st["values"] += d.numel()
+        out = matmul(card_a, w)
+        st["exact"] &= torch.equal(out, card_out)
+        return out
+
+    with _patched(tq, int8_dwconv_reference=dw, int8_matmul=mm):
+        host = tq.quantized_convnext_logits(host_qp, images, meta, dtype=torch.float32)
+    st["exact"] &= not dws and not mms
+    st["logits"] = float((host - logits).abs().max())
+    st["holds"] = (st["exact"] and st["x"] <= INT8_X_ATOL and st["step"] <= 1
+                   and st["logits"] <= INT8_F32_ATOL)
+    return st
+
+
+def _int8_host_check(name, qp, images, meta, all_images, all_meta) -> dict:
+    """The card's int8 forward (the kernel, cuBLASLt's int8 GEMMs) at
+    dtype=float32 replayed on the host on the same qparams and INT8_HOST
+    alerts (``_int8_replay``); then once with INT8_MUTANT's weight scale
+    doubled on the card (a wrong dequantize scale in one block), which the
+    replay must find, beside the 0.015 check against the bf16 model on it."""
+    from btsbot_tpu_torch.ops import quantized as tq
+
+    host_qp = _qparams_on(qp, "cpu")
+    images_h, meta_h = images.cpu(), meta.cpu()
+    good = _int8_replay(host_qp, images_h, meta_h, *_int8_card_trace(qp, images, meta))
+    wq, ws = qp["weights"][INT8_MUTANT]
+    bad_qp = {**qp, "weights": {**qp["weights"], INT8_MUTANT: (wq, ws * 2)}}
+    bad = _int8_replay(host_qp, images_h, meta_h, *_int8_card_trace(bad_qp, images, meta))
+    bad_parity = tq.verify_quantized_parity(bad_qp, all_images, all_meta, tol=INT8_TOL)
+
+    def show(st):
+        return (f"GEMMs and depthwise steps bit for bit: {st['exact']}, depthwise inputs max|d| "
+                f"{st['x']:.4g}, int8 values {st['flips']} of {st['values']} differ (by at most "
+                f"{st['step']} steps), logits max|d| {st['logits']:.4g}")
+    print(f"  {name}: float32 int8 forward on the card replayed on the host ({len(images)} "
+          f"alerts): {show(good)}; limits: exact, {INT8_X_ATOL}, one step, {INT8_F32_ATOL}",
+          flush=True)
+    print(f"  {name}: with {INT8_MUTANT}'s weight scale doubled on the card: {show(bad)}; vs "
+          f"the bf16 model max|Δscore| {bad_parity['max_score_diff']:.4g} (the {INT8_TOL} "
+          f"check: {'close' if bad_parity['close'] else 'not close'})", flush=True)
+    check(good["holds"], f"{name}: the card's float32 int8 forward replays on the host")
+    check(not bad["holds"], f"{name}: the replay finds {INT8_MUTANT}'s weight scale doubled")
+    return {"replay": good, "mutant_replay": bad,
+            "mutant_max_score_diff": bad_parity["max_score_diff"]}
+
+
+def phase_int8(state: dict) -> None:
+    """The int8 quantized path (ops/quantized.py): the depthwise kernel
+    against its plain version at every stage shape of pico and nano, then
+    the flagship and nano calibrated on 512 triplets and scored on 3072
+    others, within 0.015 of the port's bf16 model on the same weights, the
+    float32 forward on the card against the host's (``_int8_host_check``),
+    with the counted launches, alerts/s and the forward split."""
+    import numpy as np
+    import torch
+    from btsbot_tpu_torch.models.factory import build_model
+    from btsbot_tpu_torch.ops import quantized as tq
+
+    report = state.get("ptxas", "")
+    for line in report[report.find("== int8_dwconv.cu"):].splitlines()[1:]:
+        if line.startswith("=="):
+            break
+        if "Used" in line or "spill" in line:
+            print(f"  ptxas int8_dwconv: {line.split(': ', 1)[-1].strip()}", flush=True)
+    rate, how = _fma_rate()
+    print(f"  the depthwise kernel's bound: {INT8_BOUND}; the taps on the FP32 pipe alone "
+          f"(the kernel's own floor, not its bound): 49 multiply-adds an output at {how}",
+          flush=True)
+    rows = _int8_dw_rows("convnext_pico", rate) + _int8_dw_rows("convnext_nano", rate)
+    res = {"rows": rows, "fma_rate": how, "paths": {}}
+    meta_all = np.random.default_rng(83).normal(size=(BATCH, len(META_COLS))).astype(np.float32)
+    for name, (config, kind, per_forward) in INT8_FORWARDS.items():
+        model = build_model(config, dtype=torch.float32, device=DEVICE, seed=0)
+        _randomise(model, seed=1)
+        weights = model.state_dict()
+        cal = torch.from_numpy(_normalised_triplets(INT8_CAL, seed=81)).to(DEVICE)
+        images = torch.from_numpy(_normalised_triplets(BATCH, seed=82)).to(DEVICE)
+        meta = torch.from_numpy(meta_all).to(DEVICE)
+        qp = tq.prepare_quantized(weights, config, cal)
+        tq.quantized_convnext_logits(qp, images, meta)  # warm
+        torch.cuda.synchronize()
+        tq.int8_dwconv.launches = 0
+        logits = tq.quantized_convnext_logits(qp, images, meta)
+        torch.cuda.synchronize()
+        launches = tq.int8_dwconv.launches
+        check(launches == per_forward,
+              f"{name}: {per_forward} int8_dwconv launches in the int8 forward ({launches})")
+        check(logits.shape == (BATCH,) and bool(torch.isfinite(logits.float()).all()),
+              f"{name}: finite int8 logits of shape ({BATCH},)")
+        parity = tq.verify_quantized_parity(qp, images, meta, tol=INT8_TOL)
+        scores = torch.sigmoid(logits.float())
+        print(f"  {name}: int8 vs the bf16 model, max|Δscore| = "
+              f"{parity['max_score_diff']:.4g}; the int8 scores span {float(scores.min()):.4f} "
+              f"to {float(scores.max()):.4f}", flush=True)
+        check(parity["close"], f"{name}: int8 scores within {INT8_TOL} of the port's bf16 "
+                               f"model on the same weights")
+        host = _int8_host_check(name, qp, images[:INT8_HOST], meta[:INT8_HOST],
+                                images, meta)
+        ms = time_ms(lambda: torch.sigmoid(
+            tq.quantized_convnext_logits(qp, images, meta).float()), iters=5, warmup=1)
+        split = _int8_split(qp, images, meta)
+        res["paths"][name] = {"launches": launches, "max_score_diff": parity["max_score_diff"],
+                              "alerts_per_s": BATCH / ms * 1e3, "split": split, **host}
+        print(f"  {name} int8 forward at batch {BATCH}: {BATCH / ms * 1e3:.1f} alerts/s; "
+              f"split {split['forward']:.3f} ms = " + ", ".join(
+                  f"{k} {split[k]:.3f} ({split['calls'][k]} calls)" for k in split["calls"])
+              + f", rest {split['rest']:.3f} on {state['gpu']}", flush=True)
+    state["int8"] = res
+
+
+# ------------------------------ examples ------------------------------
+
+EXAMPLE_SCRIPTS = {name: os.path.join(ROOT, "examples", f"{name}_torch.py")
+                   for name in ("inference_example", "serving_daemon", "train_quickstart")}
+
+
+def _example_main(name: str, argv: list):
+    """An example script's ``main(argv)``, run in this process."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", EXAMPLE_SCRIPTS[name])
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.main(argv)
+
+
+def phase_examples(state: dict) -> None:
+    """The port's examples on the card: the shipped example model's f32
+    scores (TF32 off since phase 1) within 1e-5 of its golden scores, the
+    serving daemon over 2,000 synthetic packets, the training quickstart for
+    one epoch on 512 alerts."""
+    import numpy as np
+    from btsbot_tpu_torch.ops import _build
+
+    secs = {}
+    t0 = time.perf_counter()
+    out = _example_main("inference_example", ["--local", "--device", DEVICE])
+    secs["inference_example --local"] = time.perf_counter() - t0
+    d = float(np.abs(out["scores"] - out["expected_scores"]).max())
+    print(f"  inference_example_torch --local: max|score - golden| = {d:.3g}", flush=True)
+    check(out["scores"].shape == (16,) and d <= 1e-5,
+          "the example model's f32 scores on the card within 1e-5 of the golden scores")
+    t0 = time.perf_counter()
+    stats = _example_main("serving_daemon", ["--synthetic", "2000", "--device", DEVICE])
+    secs["serving_daemon --synthetic 2000"] = time.perf_counter() - t0
+    check(stats["alerts_in"] == stats["alerts_scored"] == 2000 and stats["dropped"] == 0
+          and _build.BUILD_DIR == _build.DEFAULT_BUILD_DIR,
+          "serving_daemon_torch scored all 2,000 synthetic packets")
+    scratch, _ = _smoke_split(state)
+    t0 = time.perf_counter()
+    out = _example_main("train_quickstart", ["--epochs", "1", "--n", "512", "--device", DEVICE,
+                                             "--out", os.path.join(scratch, "quickstart")])
+    secs["train_quickstart --epochs 1 --n 512"] = time.perf_counter() - t0
+    check(bool(np.all(np.isfinite(out["scores"])))
+          and os.path.isfile(os.path.join(out["result"]["model_dir"], "best_model.pth")),
+          "train_quickstart_torch trained an epoch, wrote best_model.pth and served the val "
+          "split")
+    state["examples"] = secs
+    print("  examples: " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
+          + f" on {state['gpu']}", flush=True)
+
+
 # ------------------------------ phase 16 ------------------------------
 
 def _kernel_entry(name, source, replaces, launches, rows):
@@ -3350,10 +3739,70 @@ def phase_report(state: dict) -> None:
             if r["dtype"] == "float32"])
         entry["launches_by_width"] = base["launches_by_width"]["tf32x3"]
     kernels += f32_entries
+    kernels.append(_int8_entry(state["int8"]))
     _report_widths(state)
+    _report_int8(state)
     _report_daemon(state)
     _report_lifecycle(state)
     state["kernels_line"] = json.dumps({"kernels": kernels})
+
+
+def _int8_entry(res: dict) -> dict:
+    """The int8 depthwise kernel (csrc/int8_dwconv.cu): a pico int8 forward's
+    12 launches at batch 3072 in bf16 (each stage's time x its depth), nano's
+    14 beside them; launches counted on both int8 paths."""
+    def forward(kind):
+        rows = [r for r in res["rows"] if r["kind"] == kind and r["dtype"] == "bfloat16"]
+        out = {k: sum(r[k] * r["depth"] for r in rows)
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        t = {by: sum(r["bound_ms"] * r["depth"] for r in rows if r["bound_by"] == by)
+             for by in ("bytes", "operations")}
+        out["bound_by"] = "operations" if t["operations"] > t["bytes"] else "bytes"
+        return out
+
+    pico, nano = forward("convnext_pico"), forward("convnext_nano")
+    return {"name": "int8_dwconv", "route": "cuda",
+            "source": "btsbot_tpu_torch/csrc/int8_dwconv.cu",
+            "replaces": "btsbot_tpu/ops/quantized.py:199 (no Pallas kernel: the JAX "
+                        "package's int8 depthwise conv is XLA's)",
+            "launches": sum(p["launches"] for p in res["paths"].values()),
+            "launches_by_path": {f"{k} int8 forward": p["launches"]
+                                 for k, p in res["paths"].items()},
+            "max_abs_err": max(r["max_abs_err"] for r in res["rows"]),
+            **pico, "nano_forward": dict(nano, per=f"one convnext_nano int8 forward at batch "
+                                                   f"{BATCH}, bfloat16 ({NANO_LAUNCHES} launches)"),
+            "bound_rate": INT8_BOUND,
+            "per": f"one pico int8 forward at batch {BATCH}, bfloat16 (12 launches); "
+                   "library_ms: cuDNN's float32 depthwise conv over the integer-valued "
+                   "quantized tensor (the same accumulators)"}
+
+
+def _report_int8(state: dict) -> None:
+    res = state["int8"]
+    print(f"  int8_dwconv at batch {BATCH} (ms: kernel / plain / cuDNN f32 accumulators / "
+          f"bound / the taps on the FP32 pipe; bound: {INT8_BOUND}; FP32 pipe: "
+          f"{res['fma_rate']}) on {state['gpu']}:", flush=True)
+    for r in res["rows"]:
+        print(f"    {r['kind']:13s} {str(r['shape']):19s} {r['dtype']:8s} {r['ms']:.4f} / "
+              f"{r['plain_ms']:.4f} / {r['library_ms']:.4f} / {r['bound_ms']:.4f} "
+              f"({r['bound_by']}) / {r['fp32_pipe_ms']:.4f} max|d|={r['max_abs_err']:.3g}",
+              flush=True)
+    for name, p in res["paths"].items():
+        rate = {"mm_ConvNeXt-pico (flagship)": state["throughput"],
+                "mm_ConvNeXt-nano": state["nano"]["rates"]}[name]
+        sp = p["split"]
+        print(f"  {name} at batch {BATCH}: int8 {p['alerts_per_s']:.1f}, bf16 "
+              f"{rate['bf16']:.1f}, f32 {rate['f32']:.1f} alerts/s; int8 forward "
+              f"{sp['forward']:.3f} ms = depthwise {sp['depthwise launches']:.3f} + int8 GEMMs "
+              f"{sp['int8 GEMMs']:.3f} + quantize {sp['quantize passes']:.3f} + dequantize "
+              f"{sp['dequantize passes']:.3f} + rest {sp['rest']:.3f}; max|Δscore| vs bf16 "
+              f"{p['max_score_diff']:.4g}; float32 replay on the host: logits max|d| "
+              f"{p['replay']['logits']:.4g}, {p['replay']['flips']} int8 values a step apart; "
+              f"{INT8_MUTANT} doubled: depthwise inputs max|d| {p['mutant_replay']['x']:.4g}, "
+              f"max|Δscore| vs bf16 {p['mutant_max_score_diff']:.4g} on {state['gpu']}",
+              flush=True)
+    print("  examples: " + ", ".join(f"{k} {v:.1f} s" for k, v in state["examples"].items())
+          + f" on {state['gpu']}", flush=True)
 
 
 def _report_widths(state: dict) -> None:
@@ -3421,7 +3870,8 @@ PHASES = [("setup", phase_setup), ("kernels", phase_kernels),
           ("inceptionnext", phase_inceptionnext), ("widths", phase_widths),
           ("nano", phase_nano),
           ("daemon", phase_daemon), ("val", phase_val), ("distill", phase_distill),
-          ("lifecycle", phase_lifecycle), ("report", phase_report)]
+          ("lifecycle", phase_lifecycle), ("int8", phase_int8), ("examples", phase_examples),
+          ("report", phase_report)]
 
 
 def main() -> int:
