@@ -16,6 +16,14 @@ to the config that loads it (``interop.maxvit_convert.adapt_state_dict``:
 the bias tables resampled to its resolution), as the JAX package converts
 it.  Files are written to a temporary name and renamed, so an interrupted
 save leaves the last one.
+
+Under a mesh (``mesh=`` / the train state's) both files still hold whole
+tensors under the reference names: every rank gathers its model group's
+shards (parallel.sharding), rank 0 alone writes, and the ranks meet at a
+barrier after the write.  So ``best_model.pth`` loads ``strict=True``
+without a mesh (and in the JAX package), and ``restore_train_state``
+re-shards what it reads for the mesh it restores into, whatever mesh
+wrote it.
 """
 
 from __future__ import annotations
@@ -26,41 +34,52 @@ import numpy as np
 import torch
 
 from ..interop.maxvit_convert import adapt_state_dict
+from ..parallel.sharding import (
+    full_optimizer_state,
+    full_state_dict,
+    load_full_optimizer_state,
+    load_full_state_dict,
+)
 
 BEST_MODEL = "best_model.pth"
 LATEST = "latest.pt"
 
 
-def _save(obj, path: str) -> None:
-    tmp = path + ".tmp"
-    torch.save(obj, tmp)
-    os.replace(tmp, path)
+def _save(obj, path: str, mesh=None) -> None:
+    """Write ``obj`` (rank 0 alone under a mesh, then a barrier)."""
+    if mesh is None or mesh.rank == 0:
+        tmp = path + ".tmp"
+        torch.save(obj, tmp)
+        os.replace(tmp, path)
+    if mesh is not None:
+        mesh.barrier()
 
 
 def _cpu_state_dict(model) -> dict:
-    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    return {k: v.detach().cpu().clone() for k, v in full_state_dict(model).items()}
 
 
-def save_model_state_dict(path: str, model) -> None:
-    _save(_cpu_state_dict(model), path)
+def save_model_state_dict(path: str, model, mesh=None) -> None:
+    _save(_cpu_state_dict(model), path, mesh)
 
 
 def save_train_state(path: str, state, extra: dict) -> None:
     _save({
         "model": _cpu_state_dict(state.model),
-        "optimizer": state.optimizer.state_dict(),
+        "optimizer": full_optimizer_state(state.optimizer, state.model),
         "step": state.step,
         "seed": state.seed,
         "generator": state.generator.get_state(),
         "extra": {k: np.asarray(v).tolist() for k, v in extra.items()},
-    }, path)
+    }, path, state.mesh)
 
 
 def restore_train_state(path: str, state):
-    """Load ``path`` into ``state`` in place; returns (state, extra)."""
+    """Load ``path`` into ``state`` in place, re-sharded for the state's
+    mesh; returns (state, extra)."""
     ck = torch.load(path, map_location="cpu", weights_only=True)
-    state.model.load_state_dict(ck["model"])
-    state.optimizer.load_state_dict(ck["optimizer"])
+    load_full_state_dict(state.model, ck["model"])
+    load_full_optimizer_state(state.optimizer, state.model, ck["optimizer"])
     state.step = int(ck["step"])
     state.seed = int(ck["seed"])
     state.generator.set_state(ck["generator"])

@@ -80,7 +80,9 @@ def distill_to_student(
     loaded ``teacher`` model with ``teacher_config``.  ``student_config``
     replaces the derived config entirely; otherwise it is the teacher's with
     ``model_kind=student_kind``.  ``train_kwargs`` pass through to
-    :func:`engine.train.run_training` (datasets, run_name, logger, ...)."""
+    :func:`engine.train.run_training` (datasets, run_name, mesh, logger,
+    ...); under a ``mesh`` the teacher is sharded by the student's rules
+    (engine.steps)."""
     from .train import run_training
 
     if teacher is None:

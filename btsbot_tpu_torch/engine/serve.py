@@ -18,6 +18,15 @@ PyTorch under ``torch.inference_mode``: the model's ConvNeXt blocks run in
 the CUDA block kernel, the InceptionNeXt blocks' LN → MLP halves in
 ``fused_ln_mlp``.  Both scorers run on the CUDA card unless
 ``device="cpu"`` is passed, and raise without a card.
+
+``AlertScorer(mesh=)`` (JAX serve.py:29-50, 89-118) serves over a
+(data, model) mesh (parallel.mesh): every rank passes the same host
+arrays, scores its rows of each padded batch with the big weights sharded
+on the model axis, and gets all ``n`` scores back, gathered in order, as
+the JAX package's single-controller call returns them.  Every bucket of
+its ladder splits over the data axis: buckets that do not are dropped, and
+a ``batch_size`` that does not raises.  The stream scorer and the daemon
+take no mesh, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -32,11 +41,15 @@ from ..core.config import normalize_config
 from ..core.device import resolve_device
 from ..models.factory import build_model, example_inputs
 from ..ops.preprocess import l2_normalize_cutouts, preprocess_triplets
+from ..parallel.mesh import all_gather_rows, batch_sharding
+from ..parallel.sharding import shard_module
 
 
-def _bucket_ladder(batch_size: int, bucket_sizes=None) -> list[int]:
+def _bucket_ladder(batch_size: int, bucket_sizes=None, mesh=None) -> list[int]:
     """Sorted padded-batch ladder ending at batch_size: by default
-    batch_size, /4, /16 (floor 64)."""
+    batch_size, /4, /16 (floor 64).  Under a mesh every bucket splits
+    evenly on the "data" axis; the others are dropped (batch_size, which
+    must split, is always kept)."""
     if bucket_sizes is None:
         ladder, b = [], batch_size
         while b >= 64 and len(ladder) < 3:
@@ -44,7 +57,15 @@ def _bucket_ladder(batch_size: int, bucket_sizes=None) -> list[int]:
             b //= 4
     else:
         ladder = [int(b) for b in bucket_sizes]
-    return sorted({b for b in ladder if 0 < b <= batch_size} | {batch_size})
+    ladder = sorted({b for b in ladder if 0 < b <= batch_size} | {batch_size})
+    if mesh is not None:
+        d = int(mesh.shape.get("data", 1))
+        if batch_size % d != 0:
+            raise ValueError(
+                f"batch_size {batch_size} must be divisible by the mesh data axis "
+                f"({d}): each rank scores an equal share of every batch")
+        ladder = [b for b in ladder if b % d == 0]
+    return ladder
 
 
 def _pick_bucket(ladder: list[int], n: int) -> int:
@@ -107,19 +128,21 @@ class AlertScorer:
 
     def __init__(self, config, weights: Mapping, batch_size: int = 3072,
                  dtype=torch.bfloat16, normalize: bool = False, bucket_sizes=None,
-                 temperature: float = 1.0, device=None):
+                 temperature: float = 1.0, device=None, mesh=None):
         """bucket_sizes: padded-batch ladder for partial batches (default
         [batch_size/16, batch_size/4, batch_size], floor 64): a partial batch
         pads to the smallest bucket that fits.  temperature: calibration
-        temperature applied to the logits."""
+        temperature applied to the logits.  mesh: serve over a (data, model)
+        mesh (see the module doc); the device defaults to this rank's card."""
         self.config = normalize_config(config)
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, mesh)
         self.batch_size = batch_size
-        self.bucket_sizes = _bucket_ladder(batch_size, bucket_sizes)
+        self.bucket_sizes = _bucket_ladder(batch_size, bucket_sizes, mesh)
         self.temperature = float(temperature)
         self.dtype = dtype
         self.normalize = normalize
-        self.model = load_model(self.config, weights, dtype, self.device)
+        self.mesh = mesh
+        self.model = shard_module(load_model(self.config, weights, dtype, self.device), mesh)
 
     @torch.inference_mode()
     def _score(self, images: torch.Tensor | None,
@@ -146,12 +169,22 @@ class AlertScorer:
         metadata = metadata if self.config.need_metadata else None
         n = len(triplets) if triplets is not None else len(metadata)
         out = np.empty(n, np.float32)
+        share = None if self.mesh is None else batch_sharding(self.mesh)
         for start in range(0, n, self.batch_size):
             stop = min(start + self.batch_size, n)
             bs = _pick_bucket(self.bucket_sizes, stop - start)
-            out[start:stop] = self._score(*(
-                None if rows is None else _padded_on(rows[start:stop], bs, self.device)
-                for rows in (triplets, metadata)))[:stop - start].cpu().numpy()
+            if share is None:
+                scores = self._score(*(
+                    None if rows is None else _padded_on(rows[start:stop], bs, self.device)
+                    for rows in (triplets, metadata)))
+            else:  # this rank's rows of the padded batch, then every rank's scores
+                take = share.rows(bs)
+                scores = all_gather_rows(self._score(*(
+                    None if rows is None else
+                    _padded_on(rows[start:stop][take], take.stop - take.start, self.device)
+                    for rows in (triplets, metadata))), self.mesh.data_group,
+                    self.mesh.shape["data"])
+            out[start:stop] = scores[:stop - start].cpu().numpy()
         return out
 
     def throughput(self, iters: int = 20) -> float:

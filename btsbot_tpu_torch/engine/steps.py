@@ -32,14 +32,33 @@ bfloat16), in eval mode and without gradients, and the loss becomes
 ask for no gradient and are not in the student's optimizer; on the card
 every teacher ConvNeXt block is the block kernel (forward only).  The eval
 step ignores the teacher: the val loss is plain BCE.
+
+Under a mesh (``mesh=``, parallel.mesh) a step takes this rank's rows of
+the global batch (``batch_sharding(mesh)``) and equals the one-process
+step on the global batch: augmentation and dropout draw for the global
+batch and keep this rank's rows, train-mode BatchNorm takes the global
+batch's statistics, the weights sharded on the model axis are gathered
+where they are used, and after the backward one flat ``all_reduce``
+averages the gradients over the data group (the loss is a mean over equal
+shards, so that is the global batch's gradient).  The explicit
+``all_reduce`` rather than DDP: the step already owns the backward and the
+update, every rank builds the same weights from the seed (DDP's broadcast
+adds nothing), the model keeps its names and its ``plain=`` argument, and
+one collective a step is simple to time.  The returned loss and ``correct``
+are the global batch's (one more ``all_reduce``) and the logits and scores
+are gathered, so every rank returns the same metrics.  The teacher is
+sharded by the student's rules.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops.augment import augment_triplets
+from ..parallel.mesh import all_gather_rows
+from ..parallel.sharding import shard_module
 from .loss import binary_kd_loss, weighted_bce_with_logits
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -91,30 +110,62 @@ def prepare_teacher(teacher):
     return teacher
 
 
-def make_train_step(config, plain: bool = False, teacher=None):
+def average_gradients(params, mesh) -> None:
+    """Replace each parameter's gradient by its mean over the mesh's data
+    group: one ``all_reduce`` of every gradient packed flat."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=mesh.data_group)
+    flat.div_(mesh.shape["data"])
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
+def _global_metrics(mesh, loss, logits, scores, correct) -> dict:
+    """The global batch's metrics from this rank's: the mean loss and the
+    summed ``correct`` over the data group, the logits and scores gathered."""
+    d = mesh.shape["data"]
+    both = torch.stack([loss.float(), correct.float()])
+    dist.all_reduce(both, group=mesh.data_group)
+    return {"loss": both[0] / d, "logits": all_gather_rows(logits, mesh.data_group, d),
+            "scores": all_gather_rows(scores, mesh.data_group, d),
+            "correct": both[1].round().long()}
+
+
+def make_train_step(config, plain: bool = False, teacher=None, mesh=None):
     """``train_step(state, images, metadata, labels, pos_weight)`` → metrics;
     the state (model, optimizer, step) is updated in place.  ``plain=True``
     runs every block (the teacher's too) in its plain version, for holding
     the kernels against it.  ``teacher``: a model to distill from (see the
-    module doc)."""
+    module doc).  ``mesh``: the state's mesh; the step then takes this
+    rank's rows of the global batch (see the module doc)."""
     need_triplets = config.need_triplets
     dtype = compute_dtype(config)
     aug_flags = dict(h_flip=bool(config.get("data_aug_h_flip", True)),
                      v_flip=bool(config.get("data_aug_v_flip", True)),
                      rot=bool(config.get("data_aug_rot", True)))
     do_augment = need_triplets and any(aug_flags.values())
+    rows = None if mesh is None or mesh.shape["data"] == 1 else \
+        (mesh.data_index, mesh.shape["data"])
     if teacher is not None:
-        prepare_teacher(teacher)
+        prepare_teacher(shard_module(teacher, mesh))
         teacher_dtype = next(teacher.parameters()).dtype
         alpha = float(config.get("distill_alpha", 0.5))
         temperature = float(config.get("distill_temperature", 2.0))
 
     def train_step(state, images, metadata, labels, pos_weight):
         model, opt = state.model, state.optimizer
+        if state.mesh is not mesh:
+            raise ValueError("the train state's mesh is not the step's: build the "
+                             "state and the step with the same mesh")
         model.train()
         state.generator.manual_seed(step_seed(state.seed, state.step))
         if do_augment:
-            images = augment_triplets(state.generator, images, **aug_flags)
+            images = augment_triplets(state.generator, images, **aug_flags, rows=rows)
         if teacher is not None:
             with torch.no_grad():
                 t_logits = teacher(*_typed_inputs(config, images, metadata, teacher_dtype),
@@ -128,6 +179,8 @@ def make_train_step(config, plain: bool = False, teacher=None):
                                                                  temperature)
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None:
+            average_gradients([p for g in opt.param_groups for p in g["params"]], mesh)
         lr = state.lr_schedule(state.step)
         for group in opt.param_groups:
             group["lr"] = lr
@@ -136,6 +189,8 @@ def make_train_step(config, plain: bool = False, teacher=None):
         logits = logits.detach().reshape(-1)
         scores = torch.sigmoid(logits.float())
         correct = ((scores > 0.5) == (labels.reshape(-1) > 0.5)).sum()
+        if mesh is not None:
+            return _global_metrics(mesh, loss.detach(), logits, scores, correct)
         return {"loss": loss.detach(), "logits": logits, "scores": scores,
                 "correct": correct}
 
@@ -166,9 +221,11 @@ def make_device_train_step(config, images, metadata, labels, teacher=None):
     return device_train_step
 
 
-def make_eval_step(config):
+def make_eval_step(config, mesh=None):
     """``eval_step(model, images, metadata)`` → (logits, float32 scores), in
-    eval mode, without gradients."""
+    eval mode, without gradients.  ``mesh``: the step takes this rank's rows
+    of the batch and returns the whole batch's, gathered over the data
+    group."""
     dtype = compute_dtype(config)
 
     def eval_step(model, images, metadata):
@@ -177,6 +234,8 @@ def make_eval_step(config):
             image_input, metadata_input = model_inputs(config, images, metadata, dtype)
             logits = model(image_input=image_input, metadata_input=metadata_input)
         logits = logits.reshape(-1)
+        if mesh is not None:
+            logits = all_gather_rows(logits, mesh.data_group, mesh.shape["data"])
         return logits, torch.sigmoid(logits.float())
 
     return eval_step

@@ -28,8 +28,18 @@ loads one), ``logger=`` receives each epoch's metrics and the run's summary
 (``utils.logging``), ``generate_embeddings`` in the config writes
 ``embeddings.csv`` (``metrics.embeddings``), and ``make_figure`` draws the
 12-panel diagnostic PDF per split (``metrics.diagnostics``; it needs
-matplotlib, and the run raises before its first step without it).  Not
-ported yet (ROADMAP): the mesh.
+matplotlib, and the run raises before its first step without it).
+
+``mesh=`` (parallel.mesh, JAX train.py:113-125, 163-170) trains one rank
+per device, every rank calling ``run_training`` with the same arguments
+and data: each rank takes its rows of every global batch, the big weights
+are sharded on the model axis, the step averages the gradients over the
+data axis (engine.steps), and the evaluation gathers every rank's scores
+(engine.eval), so every rank returns the same history, equal to the
+one-process run's.  Rank 0 alone writes the run directory's files, with
+whole tensors (engine.checkpoint); a resume re-shards what it restores.
+The device defaults to this rank's card (``cuda:{LOCAL_RANK}``).  As in
+the JAX package the ``device_data`` path is off under a mesh.
 """
 
 from __future__ import annotations
@@ -56,6 +66,8 @@ from ..metrics.diagnostics import close_figure, diagnostic_summary, require_matp
 from ..metrics.report import make_report
 from ..models.factory import build_model
 from ..models.fusion import load_fusion_branches
+from ..parallel.mesh import batch_sharding
+from ..parallel.sharding import shard_module
 from .checkpoint import (
     BEST_MODEL,
     LATEST,
@@ -92,15 +104,24 @@ def _initial_weights(config, model, initial_state_dict, log) -> None:
         maybe_init_pretrained(config, model, log=log)
 
 
-def _write_embeddings(model, config, ds, path: str, seed: int, log) -> None:
+def _silent(_msg: str) -> None:
+    pass
+
+
+def _write_embeddings(model, config, ds, path: str, seed: int, log,
+                      write: bool = True) -> None:
     """``embeddings.csv`` as the JAX package writes it: the columns
     umap_emb_1, umap_emb_2, candid, every value a float64 in pandas'
-    formatting (the shortest repr), so a candid above 2**53 is rounded."""
+    formatting (the shortest repr), so a candid above 2**53 is rounded.
+    Under a mesh every rank computes them (the forward gathers sharded
+    weights) and rank 0 (``write``) writes."""
     from ..metrics.embeddings import generate_embeddings
 
     candids = (ds.candidates["candid"] if ds.candidates is not None
                and "candid" in ds.candidates else None)
     emb = generate_embeddings(model, config, ds, candids=candids, seed=seed)
+    if not write:
+        return
     with open(path, "w", newline="") as f:
         writer = csv.writer(f)
         writer.writerow(["umap_emb_1", "umap_emb_2", "candid"])
@@ -124,11 +145,15 @@ def run_training(
     device=None,
     teacher=None,
     logger=None,
+    mesh=None,
 ) -> dict[str, Any]:
     """Train, evaluate every epoch, early-stop, checkpoint and report.
     ``initial_state_dict``: reference-named starting weights (numpy arrays
     or tensors).  ``teacher``: a model to distill from, moved to the run's
-    device.  ``logger``: an experiment logger (``utils.logging``).
+    device.  ``logger``: an experiment logger (``utils.logging``), fed by
+    rank 0 under a mesh.  ``mesh``: train data parallel (and model-sharded)
+    over the mesh's ranks (see the module doc); the default ``log`` prints
+    on rank 0 only.
     ``make_figure`` defaults to False here, unlike the JAX package, because
     the figure needs matplotlib, which a card machine may lack; True
     without matplotlib raises ImportError before training.  Returns the JAX
@@ -137,9 +162,14 @@ def run_training(
     in ``best_model.pth``."""
     config = normalize_config(config)
     seed = int(config.get("random_seed", 0))
-    dev = resolve_device(device)
+    dev = resolve_device(device, mesh)
     if make_figure:
         require_matplotlib()
+    writer = mesh is None or mesh.rank == 0
+    if not writer:
+        logger = None
+        if log is print:
+            log = _silent
 
     # /---------------- data ----------------/
     if train_ds is None:
@@ -163,20 +193,23 @@ def run_training(
     # the config's compute_dtype (engine.steps)
     model = build_model(config, dtype=torch.float32, device=dev, seed=seed)
     _initial_weights(config, model, initial_state_dict, log)
-    state = create_train_state(config, model, steps_per_epoch, seed=seed)
+    state = create_train_state(config, model, steps_per_epoch, seed=seed, mesh=mesh)
+    rows = batch_sharding(mesh) if mesh is not None else None
+    if rows is not None:
+        rows.rows(batch_size)  # raises on a batch the data axis does not split
 
     if teacher is not None:
         teacher = teacher.to(dev)
         log(f"Distilling from teacher (alpha={config.get('distill_alpha', 0.5)}, "
             f"T={config.get('distill_temperature', 2.0)})")
-    device_data = bool(config.get("device_data", False))
+    device_data = bool(config.get("device_data", False)) and mesh is None
     if device_data:
         image_dtype = config.get("device_data_dtype")
         train_step = make_device_train_step(config, *put_dataset_on_device(
             train_ds, dev, COMPUTE_DTYPES[image_dtype] if image_dtype else None),
             teacher=teacher)
     else:
-        train_step = make_train_step(config, teacher=teacher)
+        train_step = make_train_step(config, teacher=teacher, mesh=mesh)
 
     run_model_name = (f"{config['model_name']}_{config['train_data_version']}"
                       f"_N{config.get('N_max', 100)}_torch")
@@ -225,11 +258,13 @@ def run_training(
             for images, metadata, labels in iterate_batches(
                     train_ds, batch_size, shuffle=True, drop_last=True,
                     seed=seed + epoch):
+                if rows is not None:
+                    images, metadata, labels = (rows(x) for x in (images, metadata, labels))
                 m = train_step(state, to_device(images, dev), to_device(metadata, dev),
                                to_device(labels, dev), pos_weight)
                 losses.append(m["loss"])
                 corrects.append(m["correct"])
-                seen += len(labels)
+                seen += batch_size
         epoch_train_loss = (float(torch.stack(losses).double().mean())
                             if losses else float("nan"))
         epoch_train_acc = (int(torch.stack(corrects).sum()) if corrects else 0) / max(1, seen)
@@ -237,7 +272,7 @@ def run_training(
         train_accs[epoch] = epoch_train_acc
 
         val_loss, val_acc, val_raw_preds, val_labels = evaluate(
-            model, config, val_ds, pos_weight, batch_size)
+            model, config, val_ds, pos_weight, batch_size, mesh)
         val_losses[epoch] = val_loss
         val_accs[epoch] = val_acc
         final_epoch = epoch
@@ -250,7 +285,7 @@ def run_training(
         prev_best = float(np.min(val_losses[:epoch])) if epoch > 0 else np.inf
         improved = 1.005 * val_loss < prev_best
         if improved:
-            save_model_state_dict(best_path, model)
+            save_model_state_dict(best_path, model, mesh)
             best_raw_preds = np.copy(val_raw_preds)
             best_val_labels = np.copy(val_labels)
             epochs_since_improvement = 0
@@ -293,7 +328,7 @@ def run_training(
         if start_epoch >= epochs:
             # a resumed run that had finished every epoch: evaluate once
             _, _, val_raw_preds, val_labels = evaluate(
-                model, config, val_ds, pos_weight, batch_size)
+                model, config, val_ds, pos_weight, batch_size, mesh)
         best_raw_preds = val_raw_preds
         best_val_labels = val_labels
 
@@ -313,12 +348,13 @@ def run_training(
                                       or config.get("generate_embeddings", False)):
         eval_model = build_model(config, device=dev, seed=seed)
         eval_model.load_state_dict(load_model_checkpoint(config, model_dir))
+        shard_module(eval_model, mesh)
 
     summaries = {}
     analysis = [("val", val_ds, best_raw_preds, best_val_labels)]
     if test_ds is not None:
         _, _, test_preds, test_labels = evaluate(
-            eval_model, config, test_ds, pos_weight, batch_size)
+            eval_model, config, test_ds, pos_weight, batch_size, mesh)
         analysis.append(("test", test_ds, test_preds, test_labels))
 
     for split, ds, preds, labels in analysis:
@@ -329,15 +365,16 @@ def run_training(
                           "accuracy": run_data["train_accuracy"],
                           "val_loss": run_data["val_loss"],
                           "val_accuracy": run_data["val_accuracy"]},
-                make_figure=make_figure,
+                make_figure=make_figure and writer,
                 fig_path=os.path.join(model_dir, f"{split}_diagnostics.pdf"))
             close_figure(summary)
         else:
             summary = alert_metrics(labels, preds)
         summaries[split] = summary
 
-    make_report(config, os.path.join(model_dir, "report.json"), run_data,
-                summaries["val"])
+    if writer:
+        make_report(config, os.path.join(model_dir, "report.json"), run_data,
+                    summaries["val"])
 
     if logger is not None:
         from ..utils.logging import summary_from_diagnostics
@@ -353,9 +390,11 @@ def run_training(
     if config.get("generate_embeddings", False):
         try:
             _write_embeddings(eval_model, config, test_ds if test_ds is not None else val_ds,
-                              os.path.join(model_dir, "embeddings.csv"), seed, log)
+                              os.path.join(model_dir, "embeddings.csv"), seed, log, writer)
         except Exception as e:  # noqa: BLE001 — the reference's guard
             log(f"Error generating embeddings: {e}; skipping.")
+    if mesh is not None:
+        mesh.barrier()  # rank 0's files are written before any rank returns
 
     log(f"Best val loss: {np.min(val_losses[:final_epoch + 1]):.5f}  "
         f"best val acc: {np.max(val_accs[:final_epoch + 1]):.5f}")

@@ -17,6 +17,12 @@
   the train state's seed; ``Dropout2d`` draws one mask entry per (alert,
   channel) of an NHWC map, shape (N, 1, 1, C), as the JAX package's
   ``Dropout(broadcast_dims=(1, 2))`` (models/cnn.py:50-51, 60-61);
+* under a mesh with a data axis d > 1 (``set_data_parallel``) each rank
+  holds 1/d of the global batch: a train-mode BatchNorm sums x and x² over
+  the mesh's data group before it forms the mean and the flax variance
+  (flax's statistics cover the global batch; ``SyncBatchNorm``'s variance
+  is another), and a Dropout draws the global batch's mask and keeps this
+  rank's rows, so the step equals the one-process step;
 * ``MetadataBranch`` — BatchNorm → Linear → act → Dropout → Linear → act,
   the BatchNorm output cast to the compute type (the last act left out for
   frozen_fusion's metadata branch);
@@ -36,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.config import IMAGE_ONLY_MODELS, METADATA_ONLY_MODELS, MULTIMODAL_MODELS
+from ..parallel.mesh import all_reduce_sum
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -70,8 +77,16 @@ def _flax_batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
     """Train-mode BatchNorm over ``dims`` of x, channels last: the flax
     rule in float32, the running statistics updated in place."""
     xf = x.float()
-    mean = xf.mean(dim=dims)
-    var = torch.clamp(xf.square().mean(dim=dims) - mean.square(), min=0.0)
+    if bn.data_group is None:
+        mean = xf.mean(dim=dims)
+        var = torch.clamp(xf.square().mean(dim=dims) - mean.square(), min=0.0)
+    else:
+        group, size = bn.data_group
+        count = size * xf.numel() // xf.shape[-1]
+        sums = all_reduce_sum(torch.stack([xf.sum(dim=dims), xf.square().sum(dim=dims)]),
+                              group)
+        mean = sums[0] / count
+        var = torch.clamp(sums[1] / count - mean.square(), min=0.0)
     with torch.no_grad():
         bn.running_mean.mul_(0.9).add_(0.1 * mean)
         bn.running_var.mul_(0.9).add_(0.1 * var)
@@ -81,6 +96,8 @@ def _flax_batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
 
 
 class BatchNorm1d(nn.BatchNorm1d):
+    data_group = None   # (group, size) under a mesh with a data axis > 1
+
     def __init__(self, n: int):
         super().__init__(n, eps=1e-5, momentum=0.1)  # flax momentum 0.9
 
@@ -92,6 +109,7 @@ class BatchNorm1d(nn.BatchNorm1d):
 
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm of an NHWC map over its last (channel) axis."""
+    data_group = None
 
     def __init__(self, n: int):
         super().__init__(n, eps=1e-5, momentum=0.1)  # flax momentum 0.9
@@ -106,6 +124,7 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 class Dropout(nn.Dropout):
     generator: torch.Generator | None = None
+    rows: tuple[int, int] | None = None   # (data index, data size) under a mesh
 
     def _mask_shape(self, x: torch.Tensor) -> tuple[int, ...]:
         return tuple(x.shape)
@@ -113,8 +132,13 @@ class Dropout(nn.Dropout):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0:
             return x
-        keep = x.new_empty(self._mask_shape(x)).bernoulli_(1 - self.p,
-                                                          generator=self.generator)
+        shape = self._mask_shape(x)
+        if self.rows is None:
+            keep = x.new_empty(shape).bernoulli_(1 - self.p, generator=self.generator)
+        else:  # the global batch's mask, this rank's rows of it
+            index, size = self.rows
+            keep = x.new_empty((size * shape[0],) + shape[1:]).bernoulli_(
+                1 - self.p, generator=self.generator).narrow(0, index * shape[0], shape[0])
         return x * keep / (1 - self.p)
 
 
@@ -130,6 +154,18 @@ def set_dropout_generator(model: nn.Module, generator: torch.Generator | None) -
     for m in model.modules():
         if isinstance(m, Dropout):
             m.generator = generator
+
+
+def set_data_parallel(model: nn.Module, mesh) -> None:
+    """Give every train-mode BatchNorm of ``model`` the global batch's
+    statistics and every Dropout the global batch's mask under ``mesh``
+    (None, or a data axis of 1: this process's batch is the whole batch)."""
+    size = 1 if mesh is None else mesh.shape["data"]
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.rows = (mesh.data_index, size) if size > 1 else None
+        elif isinstance(m, (BatchNorm1d, BatchNorm2d)):
+            m.data_group = (mesh.data_group, size) if size > 1 else None
 
 
 def check_inputs(model_name: str, image_input, metadata_input) -> None:

@@ -12,7 +12,10 @@ sample.  Images are square, so a right-angle rotation is exact.
   part held to the JAX package exactly);
 * ``draw_augmentation`` draws them from an explicit ``torch.Generator``.
   JAX's key stream cannot be reproduced in torch; the train step seeds the
-  generator from (seed, step), so a run is reproducible per seed.
+  generator from (seed, step), so a run is reproducible per seed.  Under a
+  mesh (``rows=(data index, data size)``) a rank draws for the global
+  batch and keeps its own rows, so its images are augmented as the
+  one-process step augments them.
 """
 
 from __future__ import annotations
@@ -53,7 +56,12 @@ def draw_augmentation(generator: torch.Generator, n: int, device,
 
 def augment_triplets(generator: torch.Generator, images: torch.Tensor,
                      h_flip: bool = True, v_flip: bool = True,
-                     rot: bool = True) -> torch.Tensor:
-    """Flags mirror the config keys ``data_aug_{h_flip,v_flip,rot}``."""
-    return apply_augmentation(images, *draw_augmentation(
-        generator, images.shape[0], images.device, h_flip, v_flip, rot))
+                     rot: bool = True, rows: tuple[int, int] | None = None) -> torch.Tensor:
+    """Flags mirror the config keys ``data_aug_{h_flip,v_flip,rot}``.
+    ``rows``: (index, count) when ``images`` are rows index·n … (index+1)·n
+    of a global batch of count·n."""
+    n = images.shape[0]
+    index, count = rows or (0, 1)
+    draws = draw_augmentation(generator, count * n, images.device, h_flip, v_flip, rot)
+    return apply_augmentation(images, *(None if d is None else d[index * n:(index + 1) * n]
+                                        for d in draws))

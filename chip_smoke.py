@@ -173,7 +173,22 @@ convnext_pico, 63×63×3 triplets + 25 metadata features) on the card:
     --synthetic 2000`` (every packet scored) and ``train_quickstart_torch.py
     --epochs 1 --n 512`` (a ``best_model.pth``, finite val scores), each in
     this process;
-18. a ``{"kernels": [...]}`` line (launches by path and by variant and
+18. mesh (``btsbot_tpu_torch.parallel``): ``run_training(mesh=make_mesh())``
+    at world size 1 under NCCL, 1 epoch at batch 64 on phase 6's split
+    (cuDNN deterministic): 12 block launches a train step and an eval batch,
+    its ``best_model.pth`` scoring the val split within 1e-6 of the same run
+    without a mesh; then two ranks sharing the card over gloo (CUDA tensors,
+    ``parallel.dryrun.spawn`` running ``mesh_rank``) at meshes 2x1 and 1x2:
+    one f32 step (TF32 off) of the flagship and of
+    mm_InceptionNeXt-pico.r2 at global batch 64 against the one-process
+    step on the card (loss rtol 1e-5, the all-reduced gradients within 1e-4
+    of their largest entry, the head's output weight rtol 1e-5 / atol 1e-7,
+    12 block or ``fused_ln_mlp`` launches on each rank), and the flagship's
+    ``AlertScorer(mesh=)`` on 1,100 alerts at batch 512 (f32 within 1e-5 of
+    the unsharded scorer, bf16 within 0.01 of f32, 12 launches a batch on
+    each rank); the f32 step's time at 1x1 (NCCL and one process), 2x1 and
+    1x2 with the gradient all-reduce's share (information only);
+19. a ``{"kernels": [...]}`` line (launches by path and by variant and
     width, the source of each variant, a pico and a nano forward's
     launches against their bound; the float32 kernels of ``csrc/tf32x3.cu``
     as entries of their own: a pico f32 forward's 12 launches against both
@@ -181,7 +196,7 @@ convnext_pico, 63×63×3 triplets + 25 metadata features) on the card:
     their bound and cuDNN's), alerts/s for each scorer and the daemon, int8
     beside bf16 and f32 (information only), the per-width times in a table
     and in ``build/smoke_widths.json``;
-19. the card's name and power limit, then as the last line
+20. the card's name and power limit, then as the last line
     ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero and prints no result.  So does a host
@@ -3550,6 +3565,268 @@ def phase_examples(state: dict) -> None:
           + f" on {state['gpu']}", flush=True)
 
 
+# ------------------------------ phase "mesh" ------------------------------
+
+MESH_SHAPES = ((2, 1), (1, 2))       # two ranks sharing the one card over gloo
+MESH_KINDS = {"convnext_pico.d1_in1k": "convnext_block_fused",
+              "inceptionnext_pico.r2": "fused_ln_mlp"}
+MESH_SCORE_BATCH = 512
+MESH_SCORE_ALERTS = 2 * MESH_SCORE_BATCH + 76   # two full batches and a tail
+MESH_STEP_ITERS = 10
+
+
+def _whole_grads(model, mesh) -> dict:
+    """Every parameter's gradient as a whole tensor (a sharded weight's
+    shards gathered over the model group)."""
+    from btsbot_tpu_torch.parallel.mesh import all_gather_rows
+    from btsbot_tpu_torch.parallel.sharding import full_named_parameters, module_shardings
+
+    dims = module_shardings(model, mesh) if mesh is not None else {}
+    out = {}
+    for name, p in full_named_parameters(model):
+        g = p.grad
+        if name in dims:
+            d, m = dims[name], mesh.shape["model"]
+            g = all_gather_rows(g.movedim(d, 0), mesh.model_group, m).movedim(0, d)
+        out[name] = g.detach().cpu().clone()
+    return out
+
+
+def _mesh_step(config, weights, batch, mesh, device, timed: bool = True,
+               profile: str | None = None) -> dict:
+    """One f32 train step of a fresh model holding ``weights`` on the global
+    ``batch`` (this rank's rows under ``mesh``): loss, whole gradients, the
+    head's output weight after the step, kernel launches; then (``timed``)
+    the step's time over ``MESH_STEP_ITERS`` more steps and the gradient
+    all-reduce's (host clock, synchronised), and (``profile``, a label) a
+    ``torch.profiler`` table of the step (information only)."""
+    import torch
+    from btsbot_tpu_torch.core.config import normalize_config
+    from btsbot_tpu_torch.engine.state import create_train_state
+    from btsbot_tpu_torch.engine.steps import average_gradients, make_train_step
+    from btsbot_tpu_torch.models.factory import build_model
+    from btsbot_tpu_torch.parallel.mesh import batch_sharding
+    from btsbot_tpu_torch.parallel.sharding import full_state_dict
+
+    config = normalize_config(config)
+    model = build_model(config, device=device)
+    model.load_state_dict(weights)
+    st = create_train_state(config, model, steps_per_epoch=TRAIN_ALERTS // TRAIN_BATCH,
+                            mesh=mesh)
+    *arrays, pos_weight = batch
+    if mesh is not None:
+        arrays = [batch_sharding(mesh)(x) for x in arrays]
+    inputs = [torch.from_numpy(x).to(device) for x in arrays]
+    step = make_train_step(config, mesh=mesh)
+    torch.cuda.synchronize()
+    _zero_kernel_counts()
+    m = step(st, *inputs, pos_weight)
+    torch.cuda.synchronize()
+    out = {"loss": m["loss"].item(), "launches": _kernel_counts(),
+           "grads": _whole_grads(model, mesh),
+           "out_w": full_state_dict(model)["combined_head.5.weight"].cpu().clone()}
+    ms = {}
+    for name, fn in (() if not timed else
+                     (("step", lambda: step(st, *inputs, pos_weight)),
+                      ("all_reduce", lambda: average_gradients(
+                          [p for p in model.parameters() if p.grad is not None], mesh)))):
+        if name == "all_reduce" and mesh is None:
+            continue
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MESH_STEP_ITERS):
+            fn()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3 / MESH_STEP_ITERS
+    out["ms"] = ms
+    if profile is not None:
+        _profile(lambda: step(st, *inputs, pos_weight), profile)
+    return out
+
+
+def _mesh_scores(config, weights, trips, meta, dtype, mesh, device):
+    """``AlertScorer`` scores at batch 512 and the launches it made."""
+    import torch
+    from btsbot_tpu_torch.engine.serve import AlertScorer
+
+    sc = AlertScorer(config, weights, batch_size=MESH_SCORE_BATCH, dtype=dtype, mesh=mesh,
+                     device=device)
+    torch.cuda.synchronize()
+    _zero_kernel_counts()
+    scores = sc(trips, meta)
+    torch.cuda.synchronize()
+    return scores, _kernel_counts()
+
+
+def mesh_rank(workdir: str) -> None:
+    """One of two ranks sharing the card over gloo (``phase_mesh`` spawns
+    them): under each mesh of ``MESH_SHAPES``, one f32 step of each kind
+    and the flagship's scorers; rank ``r`` writes ``rank{r}.pt``."""
+    import torch
+    import torch.distributed as dist
+    from btsbot_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    inp = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
+    meshes = {s: make_mesh(data=s[0], model=s[1]) for s in MESH_SHAPES}
+    out = {"steps": {}, "scores": {}}
+    for shape, mesh in meshes.items():
+        for kind in MESH_KINDS:
+            out["steps"][shape, kind] = _mesh_step(
+                inp["configs"][kind], inp["weights"][kind], inp["batch"], mesh, DEVICE,
+                timed=kind == "convnext_pico.d1_in1k")
+        for dname in ("float32", "bfloat16"):
+            out["scores"][shape, dname] = _mesh_scores(
+                inp["configs"]["convnext_pico.d1_in1k"], inp["weights"]["convnext_pico.d1_in1k"],
+                *inp["serve"], getattr(torch, dname), mesh, DEVICE)
+    torch.save(out, os.path.join(workdir, f"rank{dist.get_rank()}.pt"))
+
+
+def phase_mesh(state: dict) -> None:
+    """(a) ``run_training(mesh=make_mesh())`` at world size 1 under NCCL
+    against the same run without a mesh; (b) two ranks on the card over
+    gloo at 2x1 and 1x2: one f32 step of the flagship and of
+    mm_InceptionNeXt-pico.r2 against the one-process step; (c)
+    ``AlertScorer(mesh=)`` on those ranks against the unsharded scorer."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from btsbot_tpu_torch.core.config import normalize_config
+    from btsbot_tpu_torch.data.dataset import load_split
+    from btsbot_tpu_torch.engine.checkpoint import load_model_checkpoint
+    from btsbot_tpu_torch.engine.eval import predict_dataset
+    from btsbot_tpu_torch.engine.serve import AlertScorer
+    from btsbot_tpu_torch.engine.train import run_training
+    from btsbot_tpu_torch.models.factory import build_model
+    from btsbot_tpu_torch.parallel.dryrun import spawn
+    from btsbot_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+
+    tmp, data_dir = _smoke_split(state)
+    config = normalize_config(_train_config(epochs=1))
+    val = load_split(config, "val", data_dir)
+    steps = TRAIN_ALERTS // TRAIN_BATCH
+    evals = -(-VAL_ALERTS // TRAIN_BATCH)
+    launches = {"convnext_block_fused": 0, "fused_ln_mlp": 0}
+    timing = {}
+
+    # ---- (a) world size 1 under NCCL against no mesh, deterministic cuDNN
+    initialize_distributed(backend="nccl")
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        mesh = make_mesh()
+        scores = {}
+        for name, m in (("no mesh", None), ("mesh 1x1", mesh)):
+            torch.cuda.synchronize()
+            _zero_kernel_counts()
+            t0 = time.perf_counter()
+            r = run_training(config, data_dir=data_dir, out_root=os.path.join(tmp, "mesh_a"),
+                             run_name=name.replace(" ", "_"), log=lambda _m: None,
+                             device=DEVICE, mesh=m)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            n = _kernel_counts()["convnext_block_fused"]
+            model = build_model(config, device=DEVICE)
+            model.load_state_dict(load_model_checkpoint(config, r["model_dir"]), strict=True)
+            scores[name] = predict_dataset(model, config, val)[1]
+            print(f"  run_training {name}: 1 epoch {secs:.1f} s, {n} block launches, "
+                  f"train loss {r['history']['train_loss'][0]:.6f}", flush=True)
+            check(n == 12 * (steps + evals), f"{name}: 12 block launches a train step and an "
+                                             f"eval batch ({12 * (steps + evals)})")
+            if m is not None:
+                launches["convnext_block_fused"] += n
+        d = float(np.abs(scores["mesh 1x1"] - scores["no mesh"]).max())
+        print(f"  best_model.pth of the 1x1 NCCL run vs the run without a mesh: val scores "
+              f"max|d| = {d:.3g}", flush=True)
+        check(d <= 1e-6, "run_training(mesh=make_mesh()) at world size 1 under NCCL: its "
+                         "best_model.pth scores within 1e-6 of the run without a mesh")
+        train = load_split(config, "train", data_dir)
+        batch = (train.images[:TRAIN_BATCH], train.metadata[:TRAIN_BATCH],
+                 train.labels[:TRAIN_BATCH], train.pos_weight)
+        one = _mesh_step(config, state["weights"], batch, mesh, DEVICE,
+                         profile="flagship f32 step at batch 64, 1x1 mesh under NCCL")
+        timing["1x1 nccl"] = one["ms"]
+    finally:
+        torch.backends.cudnn.deterministic = det
+        dist.destroy_process_group()
+
+    # ---- (b), (c): two ranks on the card over gloo (CUDA tensors)
+    configs = {kind: _train_config(model_kind=kind, epochs=1) for kind in MESH_KINDS}
+    r2 = build_model(configs["inceptionnext_pico.r2"], device="cpu", seed=0)
+    _randomise(r2, seed=5)
+    weights = {"convnext_pico.d1_in1k": {k: v.cpu() for k, v in state["weights"].items()},
+               "inceptionnext_pico.r2": r2.state_dict()}
+    trips = _normalised_triplets(MESH_SCORE_ALERTS, seed=21)
+    meta = np.random.default_rng(22).normal(
+        size=(MESH_SCORE_ALERTS, len(META_COLS))).astype(np.float32)
+    work = os.path.join(tmp, "mesh_ranks")
+    os.makedirs(work)
+    torch.save({"configs": configs, "weights": weights, "batch": batch,
+                "serve": (trips, meta)}, os.path.join(work, "inputs.pt"))
+    t0 = time.perf_counter()
+    spawn(2, "chip_smoke:mesh_rank", [work], backend="gloo", timeout=300)
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    print(f"  2 ranks on the card over gloo: {time.perf_counter() - t0:.1f} s with their "
+          f"start", flush=True)
+    for kind, kernel in MESH_KINDS.items():
+        flagship = kind == "convnext_pico.d1_in1k"
+        want = _mesh_step(configs[kind], weights[kind], batch, None, DEVICE, timed=flagship,
+                          profile="the same step in one process, no mesh" if flagship
+                          else None)
+        if flagship:
+            timing["1x1 one process"] = want["ms"]
+        for shape in MESH_SHAPES:
+            for r, res in enumerate(ranks):
+                got = res["steps"][shape, kind]
+                rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+                worst, worst_name = max(
+                    ((got["grads"][n] - g).abs().max().item()
+                     / max(g.abs().max().item(), 1e-30), n) for n, g in want["grads"].items())
+                w_ok = torch.allclose(got["out_w"], want["out_w"], rtol=1e-5, atol=1e-7)
+                n = got["launches"][kernel]
+                print(f"  {kind} {shape[0]}x{shape[1]} rank {r}: loss {got['loss']:.8f} vs "
+                      f"{want['loss']:.8f} (rel {rel:.3g}); worst gradient max|d|/max|g| "
+                      f"{worst:.3g} ({worst_name}); {n} {kernel} launches", flush=True)
+                check(rel <= 1e-5 and worst <= 1e-4 and w_ok and n == 12,
+                      f"{kind} step on the {shape[0]}x{shape[1]} mesh, rank {r}: loss rtol "
+                      f"1e-5, all-reduced gradients within 1e-4 of their largest entry, the "
+                      f"head's output weight rtol 1e-5 / atol 1e-7, 12 {kernel} launches")
+                launches[kernel] += n
+                if flagship:
+                    timing[f"{shape[0]}x{shape[1]} gloo rank {r}"] = got["ms"]
+    sc = {}
+    for dname in ("float32", "bfloat16"):
+        sc[dname], _ = _mesh_scores(configs["convnext_pico.d1_in1k"],
+                                    weights["convnext_pico.d1_in1k"], trips, meta,
+                                    getattr(torch, dname), None, DEVICE)
+    per_rank = 12 * -(-MESH_SCORE_ALERTS // MESH_SCORE_BATCH)
+    for shape in MESH_SHAPES:
+        for r, res in enumerate(ranks):
+            f32, n32 = res["scores"][shape, "float32"]
+            bf16, n16 = res["scores"][shape, "bfloat16"]
+            d32 = float(np.abs(f32 - sc["float32"]).max())
+            d16 = float(np.abs(bf16 - f32).max())
+            print(f"  AlertScorer {shape[0]}x{shape[1]} rank {r}: f32 max|d| vs unsharded "
+                  f"{d32:.3g}, bf16 vs f32 {d16:.3g}; {n32['convnext_block_fused']} + "
+                  f"{n16['convnext_block_fused']} block launches", flush=True)
+            check(f32.shape == (MESH_SCORE_ALERTS,) and d32 <= 1e-5 and d16 <= 0.01
+                  and n32["convnext_block_fused"] == n16["convnext_block_fused"] == per_rank,
+                  f"AlertScorer on the {shape[0]}x{shape[1]} mesh, rank {r}: all "
+                  f"{MESH_SCORE_ALERTS} scores, f32 within 1e-5 of the unsharded scorer, "
+                  f"bf16 within 0.01 of f32, {per_rank} block launches a type")
+            launches["convnext_block_fused"] += n32["convnext_block_fused"] + \
+                n16["convnext_block_fused"]
+    for name, ms in timing.items():
+        share = (f", gradient all-reduce {ms['all_reduce']:.3f} ms "
+                 f"({100 * ms['all_reduce'] / ms['step']:.1f} %)" if "all_reduce" in ms else "")
+        print(f"  flagship f32 step at global batch {TRAIN_BATCH}, {name}: {ms['step']:.3f} ms"
+              f"{share} on {state['gpu']}", flush=True)
+    state["mesh"] = {"launches": launches, "timing": timing}
+
+
 # ------------------------------ phase 16 ------------------------------
 
 def _kernel_entry(name, source, replaces, launches, rows):
@@ -3612,6 +3889,14 @@ def phase_report(state: dict) -> None:
     paths["lifecycle (cli.train 1 epoch + ONNX verifications at 16 and 256 alerts)"] = \
         lc["convnext_block_fused"]
     ln_mlp_paths[f"lifecycle ({LIFECYCLE_INCEPTION} ONNX verification)"] = lc["fused_ln_mlp"]
+    # this slice's path: the mesh (run_training at world size 1 under NCCL;
+    # two ranks sharing the card over gloo: steps at 2x1 and 1x2 and the
+    # flagship's AlertScorer, the ranks' counts summed)
+    mesh = state["mesh"]["launches"]
+    paths["mesh (run_training 1x1 NCCL; 2 gloo ranks on the card: 2x1 / 1x2 flagship steps "
+          "and AlertScorer f32 + bf16)"] = mesh["convnext_block_fused"]
+    ln_mlp_paths["mesh (2 gloo ranks on the card: 2x1 / 1x2 mm_InceptionNeXt-pico.r2 "
+                 "steps)"] = mesh["fused_ln_mlp"]
     distill_shapes = {}
     for (name, n_b, dname), t in state["distill_kernels"].items():
         distill_shapes.setdefault(name, {})[f"batch {n_b} {dname}"] = dict(
@@ -3871,7 +4156,7 @@ PHASES = [("setup", phase_setup), ("kernels", phase_kernels),
           ("nano", phase_nano),
           ("daemon", phase_daemon), ("val", phase_val), ("distill", phase_distill),
           ("lifecycle", phase_lifecycle), ("int8", phase_int8), ("examples", phase_examples),
-          ("report", phase_report)]
+          ("mesh", phase_mesh), ("report", phase_report)]
 
 
 def main() -> int:

@@ -85,6 +85,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import btsbot_tpu_torch.interop.onnx_proto, btsbot_tpu_torch.interop.onnx_numpy\n"
         "import btsbot_tpu_torch.interop.onnx_export, btsbot_tpu_torch.cli.export\n"
         "import btsbot_tpu_torch.interop.publish, btsbot_tpu_torch.cli.publish\n"
+        "import btsbot_tpu_torch.parallel.mesh, btsbot_tpu_torch.parallel.sharding\n"
+        "import btsbot_tpu_torch.parallel.multihost_check, btsbot_tpu_torch.parallel.dryrun\n"
         "btsbot_tpu_torch.AlertScorer, btsbot_tpu_torch.build_model\n"
         "btsbot_tpu_torch.AlertStreamConsumer\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + OPTIONAL!r}]\n"
