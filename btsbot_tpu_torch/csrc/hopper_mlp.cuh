@@ -645,20 +645,28 @@ inline TensorMapEncodeFn tensor_map_encoder() {
   return fn;
 }
 
-// A map over a row-major (rows, cols) bf16 matrix that loads 64 x 64 boxes
-// with the 128-byte swizzle.
-inline cudaError_t weight_map(CUtensorMap* map, const void* w, int rows, int cols) {
+// A map over a row-major (rows, cols) matrix of `type`, rows `ld` bytes
+// apart (a multiple of 16), that loads boxes of 64 rows x 128 bytes
+// (box_cols elements) with the 128-byte swizzle: one ring unit.  The part of
+// a box past (rows, cols) arrives as zeros.
+inline cudaError_t unit_map(CUtensorMap* map, const void* w, CUtensorMapDataType type, int rows,
+                            int cols, int ld, int box_cols) {
   const TensorMapEncodeFn encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {64, 64};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), 64};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w),
-                              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  const CUresult res = encode(map, type, 2, const_cast<void*>(w), dims, strides, box, elem,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A dense row-major (rows, cols) bf16 matrix in 64 x 64 boxes.
+inline cudaError_t weight_map(CUtensorMap* map, const void* w, int rows, int cols) {
+  return unit_map(map, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rows, cols, cols * 2, 64);
 }
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }

@@ -5,7 +5,9 @@
 // quantized_convnext_logits, :199-203) leaves this step to XLA as
 // quantize_act -> conv_general_dilated(int8, int8 -> int32, groups = C) ->
 // dequantize + bias.  No CUDA operator of PyTorch computes an int8
-// depthwise convolution, so this kernel computes the whole step:
+// depthwise convolution, so this kernel computes the whole step (since
+// int8_block.cu fuses the forward's blocks, for the calibration, which needs
+// the step's float output):
 //
 //   q   = clip(round_half_even(float(x) / s_x), -127, 127)   (IEEE division)
 //   acc = sum over the 49 taps of q * w_q[c], zero padding, exactly

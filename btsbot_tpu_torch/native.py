@@ -1,8 +1,13 @@
 """ctypes binding for the repository's native (C++) batched stamp decoder.
 
-Loads ``cpp/libbtsbot_native.so`` at the repository root (built with
-``make -C cpp``, and built on first use when a toolchain is present) and
-exposes ``decode_stamps(blobs) -> (stamps, status)``.  When the library
+Loads ``build/native/libbtsbot_native.so`` at the repository root, the
+port's own build of ``cpp/stamp_decoder.cc`` (made on first use when a
+toolchain is present, by ``make -C cpp`` with ``TARGET`` pointed at a
+temporary name there), and exposes ``decode_stamps(blobs) -> (stamps,
+status)``.  The build holds an exclusive lock on a file beside the library
+and moves the finished file into place with one rename, so processes that
+start together (test workers) build it once and never load a half-written
+one; ``cpp/`` itself is not written.  When the library
 cannot be built or loaded, the host falls back to the port's own Python
 decoder (``data.alerts``); ``native_available()`` and ``decoder()`` say
 which one runs.  Either way this is host work: the decoded stamps go to the
@@ -12,6 +17,7 @@ card afterwards.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 
@@ -19,7 +25,8 @@ import numpy as np
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CPP_DIR = os.path.join(_REPO_ROOT, "cpp")
-_LIB_PATH = os.path.join(_CPP_DIR, "libbtsbot_native.so")
+_BUILD_DIR = os.path.join(_REPO_ROOT, "build", "native")
+_LIB_PATH = os.path.join(_BUILD_DIR, "libbtsbot_native.so")
 
 STAMP_SIZE = 63
 PAD_VALUE = 1e-9
@@ -29,9 +36,23 @@ _load_attempted = False
 
 
 def _try_build() -> bool:
+    """Build the library unless another process has: under the lock,
+    compile to a temporary name in the build directory, then rename it into
+    place.  True when the finished library is there."""
+    tmp = os.path.join(_BUILD_DIR, f".libbtsbot_native.{os.getpid()}.so")
     try:
-        subprocess.run(["make", "-C", _CPP_DIR], check=True,
-                       capture_output=True, timeout=120)
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        with open(os.path.join(_BUILD_DIR, "build.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if os.path.exists(_LIB_PATH):
+                return True
+            try:
+                subprocess.run(["make", "-C", _CPP_DIR, f"TARGET={tmp}"], check=True,
+                               capture_output=True, timeout=120)
+                os.replace(tmp, _LIB_PATH)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
     except (OSError, subprocess.SubprocessError):
         return False
     return os.path.exists(_LIB_PATH)

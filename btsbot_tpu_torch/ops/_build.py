@@ -76,6 +76,13 @@ _SIGNATURES = {
     # the int8 path's depthwise step (csrc/int8_dwconv.cu): x, taps, tap
     # scales, bias, out, s_x, B, H, W, C, is_bf16, stream
     "btsbot_int8_dwconv": [_P] * 5 + [ctypes.c_float] + [ctypes.c_int] * 5 + [_P],
+    # one quantized block in one launch (csrc/int8_block.cu): x, dw_q, dw_s,
+    # dw_b, ln_w, ln_b, w1, w1_s, b1, w2, w2_s, b2, gamma, out, debug q_h,
+    # debug q_g, s_x, s_h, s_g, B, H, W, C, hidden, w1's row bytes, is_bf16,
+    # stream
+    "btsbot_int8_block": [_P] * 16 + [ctypes.c_float] * 3 + [ctypes.c_int] * 7 + [_P],
+    # C, H, W -> shared memory of one block of it (0: it does not take them)
+    "btsbot_int8_block_smem": [ctypes.c_int] * 3,
 }
 
 # entry points that return something other than a CUDA error code
@@ -230,6 +237,20 @@ def kernel_variant(c: int, hidden: int, dtype: torch.dtype) -> str:
     if dtype == torch.float32:
         return "tf32x3"
     return "tuned" if c in TUNED_WIDTHS and hidden % 64 == 0 else "wgmma_any"
+
+
+def int8_block_admit(c: int, hidden: int) -> None:
+    """Raise unless the int8 block kernel (csrc/int8_block.cu) takes a block
+    of width ``c`` with ``hidden`` MLP units: C a multiple of 8 up to
+    MAX_WIDTH (padded to 64 ceil(C / 64) inside the kernel), hidden a
+    multiple of 16 (fc2's rows are hidden bytes apart, and TMA wants 16-byte
+    row strides).  Every ConvNeXt width at hidden 4C is taken."""
+    if c <= 0 or c % 8 or c > MAX_WIDTH:
+        raise ValueError(f"the int8 block kernel takes C a multiple of 8 up to {MAX_WIDTH}, "
+                         f"got C={c}")
+    if hidden <= 0 or hidden % 16:
+        raise ValueError(f"the int8 block kernel takes a hidden width that is a positive "
+                         f"multiple of 16, got {hidden}")
 
 
 def kernel_workspace(variant: str, x, m: int, c: int, hidden: int, taps: bool):

@@ -18,16 +18,20 @@ reference-named state dict (``MmConvNeXt.state_dict()`` or
   the heads in ``dtype`` as the fast forward computes them
   (``ops.ln_mlp.convnext_head_logits``).
 
-On the card: the stem (4×4 stride 4) and the downsamples (2×2 stride 2) are
-patchify GEMMs and fc1 / fc2 plain GEMMs, all ``torch._int_mm`` (int8 ×
-int8 → int32, as the JAX package leaves those products to XLA); the
-depthwise 7×7 step, which no CUDA operator of PyTorch computes in int8, is
-the hand-written kernel ``csrc/int8_dwconv.cu`` (``int8_dwconv``: the block
-input quantized, the 49 taps summed exactly, dequantized and biased in one
-launch).  On the CPU the same functions run their plain versions.  The
-quantize passes divide by the scale as a tensor on the data's device: a
-CUDA division by a Python number is a multiply by its reciprocal, which
-rounds differently from the JAX package's IEEE division.
+On the card each ConvNeXt block is one launch of the hand-written kernel
+``csrc/int8_block.cu`` (``int8_block``: the block input quantized, the 49
+taps summed exactly, dequantize + bias, LayerNorm, q_h, fc1 on the int8
+tensor cores, GELU, q_g, fc2, γ and the residual); the stem (4×4 stride 4)
+and the downsamples (2×2 stride 2) are patchify GEMMs through
+``torch._int_mm`` (int8 × int8 → int32, as the JAX package leaves those
+products to XLA) with their quantize and dequantize passes.  Calibration
+keeps the unfused steps, since it needs each float intermediate's absmax:
+there the depthwise step is ``csrc/int8_dwconv.cu`` (``int8_dwconv``).  On
+the CPU the same functions run their plain versions
+(``int8_block_reference`` is the composition the forward computed before
+the fused kernel).  The quantize passes divide by the scale as a tensor on
+the data's device: a CUDA division by a Python number is a multiply by its
+reciprocal, which rounds differently from the JAX package's IEEE division.
 
 The scales are Python floats taken from float32 values, multiplied as
 float32.  Quantized weights are kept in the forward's layouts: the stem's
@@ -40,6 +44,7 @@ daemon or a CLI, in the JAX package either.
 
 from __future__ import annotations
 
+import weakref
 from typing import Mapping
 
 import numpy as np
@@ -135,7 +140,8 @@ def int8_dwconv(x, s_x, wq, w_scale, bias):
     """The quantized block's depthwise step (JAX quantized.py:199-203) on x
     (B, H, W, C) in float32 or bfloat16, output in x's type: the CUDA kernel
     on a CUDA tensor (``int8_dwconv.launches`` counts its launches), its
-    plain version on a CPU tensor."""
+    plain version on a CPU tensor.  The calibration's; the forward runs the
+    whole block in ``int8_block``."""
     if x.is_cuda:
         return _launch_int8_dwconv(x, float(s_x), wq, w_scale, bias)
     return int8_dwconv_reference(x, s_x, wq, w_scale, bias)
@@ -190,6 +196,133 @@ def _int8_patch_conv(x, scale, weight, bias, k, dtype):
 def _act_scale(x):
     """absmax(x) / 127 in float32, a 0-d tensor."""
     return _div(_absmax(x), 127.0)
+
+
+# -------------------------- the block, fused --------------------------
+
+def int8_block_reference(x, s_x, s_h, s_g, dw, dw_b, ln_w, ln_b, fc1, b1, fc2, b2, gamma,
+                         debug=False, q_h=None, q_g=None):
+    """Plain version of one quantized block (JAX quantized.py:194-218) on x
+    (B, H, W, C), in x's type: the composition the forward ran before the
+    fused kernel, the depthwise step (``int8_dwconv_reference``), the
+    LayerNorm, q_h, fc1 in int8 dequantized and biased, tanh GELU, q_g, fc2
+    likewise, then x + γ · that.  ``quantize_act`` is called for x, h and g
+    in that order.  ``dw``, ``fc1``, ``fc2``: (int8 weight in the forward's
+    layout, float32 scales).  A given ``q_h`` (M, C) or ``q_g`` (M, hidden)
+    int8 replaces the block's own and skips the steps before it (the tail
+    from there).  With ``debug``: (out, q_h, q_g)."""
+    dtype = x.dtype
+    if q_g is None:
+        if q_h is None:
+            h = int8_dwconv_reference(x, s_x, *dw, dw_b)
+            h = _layernorm(h, ln_w, ln_b).reshape(-1, x.shape[-1])
+            q_h = quantize_act(h, s_h)
+        g = F.gelu(_dequant(int8_matmul(q_h, fc1[0]), s_h, fc1[1], b1, dtype),
+                   approximate="tanh")
+        q_g = quantize_act(g, s_g)
+    y = _dequant(int8_matmul(q_g, fc2[0]), s_g, fc2[1], b2, dtype)
+    out = x + y.reshape(x.shape) * gamma.to(dtype)
+    return (out, q_h, q_g) if debug else out
+
+
+# derived device copies, by (id(source), tag): a weak reference to the
+# source, its version counter when made, the copy
+_DERIVED: dict = {}
+
+
+def _tensor_version(t) -> int:
+    try:
+        return t._version
+    except RuntimeError:  # an inference tensor keeps no version counter
+        return -1
+
+
+def _derived(t: torch.Tensor, tag, make):
+    """``make(t)``, made once for the tensor ``t`` and kept while ``t``
+    lives unchanged (so once per qparams, never per launch)."""
+    key = (id(t), tag)
+    hit = _DERIVED.get(key)
+    if hit is not None and hit[0]() is t and hit[1] == _tensor_version(t):
+        return hit[2]
+    value = make(t)
+    _DERIVED[key] = (weakref.ref(t, lambda _, key=key: _DERIVED.pop(key, None)),
+                     _tensor_version(t), value)
+    return value
+
+
+def _rows16(w: torch.Tensor) -> torch.Tensor:
+    """w (N, K) int8 with its rows padded with zeros to a multiple of 16
+    bytes, the row stride TMA takes."""
+    return F.pad(w, (0, -w.shape[1] % 16)).contiguous()
+
+
+def _launch_int8_block(x, s_x: float, s_h: float, s_g: float, dw, dw_b, ln_w, ln_b, fc1, b1,
+                       fc2, b2, gamma, debug=False):
+    name = "int8_block"
+    if not x.is_cuda:
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got {x.device}")
+    if x.dtype not in _build.KERNEL_DTYPES:
+        raise TypeError(f"{name}: the kernel takes float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 4:
+        raise ValueError(f"{name}: x must be (B, H, W, C), got {tuple(x.shape)}")
+    b, h, w, c = x.shape
+    (dw_q, dw_s), (w1, w1_s), (w2, w2_s) = dw, fc1, fc2
+    hidden = w1.shape[0]
+    _build.int8_block_admit(c, hidden)
+    want = {"taps": (dw_q, (TAPS, TAPS, c), torch.int8), "tap scales": (dw_s, (c,), torch.float32),
+            "fc1": (w1, (hidden, c), torch.int8), "fc1 scales": (w1_s, (hidden,), torch.float32),
+            "fc2": (w2, (c, hidden), torch.int8), "fc2 scales": (w2_s, (c,), torch.float32),
+            "dw bias": (dw_b, (c,), None), "LN scale": (ln_w, (c,), None),
+            "LN shift": (ln_b, (c,), None), "fc1 bias": (b1, (hidden,), None),
+            "fc2 bias": (b2, (c,), None), "gamma": (gamma, (c,), None)}
+    for what, (t, shape, dtype) in want.items():
+        if tuple(t.shape) != shape or (dtype is not None and t.dtype != dtype):
+            raise ValueError(f"{name}: {what} {tuple(t.shape)} {t.dtype} does not fit "
+                             f"C = {c}, hidden = {hidden}")
+    for t in [x] + [t for t, _, _ in want.values()]:
+        if t.device != x.device:
+            raise ValueError(f"{name}: operands on {t.device} and {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operand of shape {tuple(t.shape)} is not contiguous")
+    lib = _build.library()
+    if lib.btsbot_int8_block_smem(c, h, w) == 0:
+        raise ValueError(f"{name}: a {h}x{w} map at C = {c} does not fit a block's shared "
+                         f"memory")
+    if c % 16:
+        w1 = _derived(w1, "rows16", _rows16)
+    dw_b, ln_w, ln_b, b1, b2, gamma = (
+        t if t.dtype == x.dtype else _derived(t, x.dtype, lambda t: t.to(x.dtype))
+        for t in (dw_b, ln_w, ln_b, b1, b2, gamma))
+    out = torch.empty_like(x)
+    q_h = torch.empty((b * h * w, c), dtype=torch.int8, device=x.device) if debug else None
+    q_g = torch.empty((b * h * w, hidden), dtype=torch.int8, device=x.device) if debug else None
+    err = lib.btsbot_int8_block(
+        *(t.data_ptr() for t in (x, dw_q, dw_s, dw_b, ln_w, ln_b, w1, w1_s, b1, w2, w2_s, b2,
+                                 gamma, out)),
+        None if q_h is None else q_h.data_ptr(), None if q_g is None else q_g.data_ptr(),
+        float(s_x), float(s_h), float(s_g), b, h, w, c, hidden, w1.shape[1],
+        int(x.dtype == torch.bfloat16), _build.current_stream(x))
+    _build.check(err, "btsbot_int8_block")
+    int8_block.launches += 1
+    return (out, q_h, q_g) if debug else out
+
+
+def int8_block(x, s_x, s_h, s_g, dw, dw_b, ln_w, ln_b, fc1, b1, fc2, b2, gamma, debug=False):
+    """One quantized ConvNeXt block (JAX quantized.py:194-218) on x (B, H, W,
+    C) in float32 or bfloat16, output in x's type: the CUDA kernel
+    ``csrc/int8_block.cu`` on a CUDA tensor (``int8_block.launches`` counts
+    its launches), ``int8_block_reference`` on a CPU tensor.  ``s_x``,
+    ``s_h``, ``s_g``: the block's activation scales as Python floats;
+    ``dw``, ``fc1``, ``fc2``: (int8 weight in the forward's layout, float32
+    scales).  With ``debug``: (out, q_h (M, C), q_g (M, hidden))."""
+    if x.is_cuda:
+        return _launch_int8_block(x, s_x, s_h, s_g, dw, dw_b, ln_w, ln_b, fc1, b1, fc2, b2,
+                                  gamma, debug=debug)
+    return int8_block_reference(x, s_x, s_h, s_g, dw, dw_b, ln_w, ln_b, fc1, b1, fc2, b2, gamma,
+                                debug=debug)
+
+
+int8_block.launches = 0
 
 
 # ------------------------------ calibration ------------------------------
@@ -353,15 +486,12 @@ def quantized_convnext_logits(qparams: Mapping, images, metadata=None,
                                      dtype)
             for b in range(depth):
                 bp, pre = f"{sp}.blocks.{b}", f"s{s}b{b}"
-                c = x.shape[-1]
-                h = int8_dwconv(x, scales[pre + "_x"], *weights[pre + "_dw"],
-                                p[f"{bp}.conv_dw.bias"])
-                h = _layernorm(h, p[f"{bp}.norm.weight"], p[f"{bp}.norm.bias"]).reshape(-1, c)
-                h = F.gelu(_int8_dense(h, sc[pre + "_h"], weights[pre + "_fc1"],
-                                       p[f"{bp}.mlp.fc1.bias"], dtype), approximate="tanh")
-                h = _int8_dense(h, sc[pre + "_g"], weights[pre + "_fc2"],
-                                p[f"{bp}.mlp.fc2.bias"], dtype)
-                x = x + h.reshape(x.shape) * p[f"{bp}.gamma"].to(dtype)
+                x = int8_block(x, scales[pre + "_x"], scales[pre + "_h"], scales[pre + "_g"],
+                               weights[pre + "_dw"], p[f"{bp}.conv_dw.bias"],
+                               p[f"{bp}.norm.weight"], p[f"{bp}.norm.bias"],
+                               weights[pre + "_fc1"], p[f"{bp}.mlp.fc1.bias"],
+                               weights[pre + "_fc2"], p[f"{bp}.mlp.fc2.bias"],
+                               p[f"{bp}.gamma"])
         meta = None if metadata is None else torch.as_tensor(metadata, device=dev)
         return convnext_head_logits(p, x, meta, config)
 

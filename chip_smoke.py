@@ -154,19 +154,32 @@ convnext_pico, 63×63×3 triplets + 25 metadata features) on the card:
     CLI's seconds, the ONNX file's size, the numpy evaluator's alerts/s
     against the card's f32 forward on the same 256 alerts (information
     only);
-16. int8, the quantized path (``ops/quantized.py``): the depthwise kernel
-    (``csrc/int8_dwconv.cu``) against its plain version at every stage
-    shape of pico and nano at batch 3072 in bf16 and f32, bit for bit
-    (max|d| = 0), with its time, the plain version's, cuDNN's float32
-    depthwise conv over the integer-valued quantized tensor (the same
-    accumulators) and the bound (bytes at 3.35 TB/s, or 49 multiply-adds an
-    output at the FP32 pipe's rate from the card's SM count and top clock);
-    then the flagship and mm_ConvNeXt-nano on the main path's weights,
-    calibrated on 512 unit-norm triplets and scored on 3072 others: 12 / 14
-    counted kernel launches a forward, finite logits, every score within
-    0.015 of the port's bf16 model (``verify_quantized_parity``), int8
-    alerts/s and the forward split into the depthwise launches, the int8
-    GEMMs, the quantize and the dequantize passes and the rest;
+16. int8, the quantized path (``ops/quantized.py``): the int8 block kernel
+    (``csrc/int8_block.cu``, one launch a block) with its ptxas lines and
+    ``IGMMA`` (int8 tensor-core) instructions in each of its 22 kernels, at
+    pico's and nano's stage shapes at batch 3072 and at atto's C = 40 and
+    base's C = 1024 at batch 256 in bf16 and f32: its q_h within one int8
+    step of the plain version's from the same x, its q_g within one step of
+    the plain version's fed the kernel's q_h, its output bit for bit equal
+    to the plain tail fed the kernel's q_g, with its time, PR 11's eager
+    block's, the plain version's and the bound (bytes at 3.35 TB/s against
+    int8 operations at 1,979 TOP/s); the depthwise kernel
+    (``csrc/int8_dwconv.cu``, the calibration's) against its plain version
+    at every stage shape of pico and nano at batch 3072 in bf16 and f32,
+    bit for bit (max|d| = 0), with its time, the plain version's, cuDNN's
+    float32 depthwise conv over the integer-valued quantized tensor (the
+    same accumulators) and the bound (bytes at 3.35 TB/s, or 49
+    multiply-adds an output at the FP32 pipe's rate from the card's SM
+    count and top clock); then the flagship and mm_ConvNeXt-nano on the
+    main path's weights, calibrated on 512 unit-norm triplets (12 / 14
+    depthwise launches) and scored on 3072 others: 12 / 14 counted block
+    launches a forward and no depthwise launch, finite logits, every score
+    within 0.015 of the port's bf16 model (``verify_quantized_parity``), the
+    card's float32 forward replayed on the host teacher-forced (each
+    block's input, q_h, q_g and output traced; the doubled-scale mutant
+    refused), int8 alerts/s and the forward split into the block launches,
+    the stem's and downsamples' int8 GEMMs, quantize and dequantize passes,
+    and the rest;
 17. examples: ``examples/inference_example_torch.py --local`` (the shipped
     example model's f32 scores, TF32 off, within 1e-5 of its golden scores
     in ``btsbot_tpu_torch/example_data``), ``serving_daemon_torch.py
@@ -192,8 +205,10 @@ convnext_pico, 63×63×3 triplets + 25 metadata features) on the card:
     width, the source of each variant, a pico and a nano forward's
     launches against their bound; the float32 kernels of ``csrc/tf32x3.cu``
     as entries of their own: a pico f32 forward's 12 launches against both
-    bounds; ``int8_dwconv``: a pico int8 forward's 12 launches against
-    their bound and cuDNN's), alerts/s for each scorer and the daemon, int8
+    bounds; ``int8_block``: a pico int8 forward's 12 launches against their
+    bound, PR 11's eager block and the plain version; ``int8_dwconv``: the
+    same 12 shapes against their bound and cuDNN's, launched by the
+    calibration), alerts/s for each scorer and the daemon, int8
     beside bf16 and f32 (information only), the per-width times in a table
     and in ``build/smoke_widths.json``;
 20. the card's name and power limit, then as the last line
@@ -362,12 +377,15 @@ def phase_setup(state: dict) -> None:
     f32 = {k: n for k, n in counts.items() if "tf32x3_kernel" in k}
     print(f"  HGMMA instructions in the float32 kernels: {sorted(f32.values())}", flush=True)
     int8 = [k for k in counts if "int8_dwconv_kernel" in k]
+    int8_block = [k for k in counts if "int8_block_kernel" in k]
     check(len(f32) == F32_KERNELS and min(f32.values()) > 0 and len(int8) == INT8_KERNELS
-          and len(counts) == BF16_KERNELS + F32_KERNELS + INT8_KERNELS + 2,
+          and len(int8_block) == INT8_BLOCK_KERNELS
+          and len(counts) == BF16_KERNELS + F32_KERNELS + INT8_KERNELS + INT8_BLOCK_KERNELS + 2,
           f"all {F32_KERNELS} float32 kernels (fused_ln_mlp and the block kernel, x 1-4 "
           f"blocks of 32 output columns a warpgroup and the 128-row tile) hold HGMMA "
           f"instructions, and the library holds no other kernel but the weight split, "
-          f"the split-sum pass and the int8 depthwise kernel in both types")
+          f"the split-sum pass, the int8 depthwise kernel in both types and the "
+          f"{INT8_BLOCK_KERNELS} int8 block kernels")
 
 
 # ------------------------------ phase 2 ------------------------------
@@ -3210,6 +3228,16 @@ INT8_X_ATOL = 1e-5    # |Δ| of a depthwise input there (stage 0's stem LN ulps,
 INT8_F32_ATOL = 1e-5  # |Δlogit| there (the same backbone features; the heads' ulps)
 INT8_MUTANT = "s0b0_fc2"  # the weight scale doubled to show that the replay can fail
 INT8_KERNELS = 2      # csrc/int8_dwconv.cu: float32 and bfloat16 inputs
+# csrc/int8_block.cu: each padded width of WGMMA_WIDTHS in both types
+INT8_BLOCK_KERNELS = 2 * len(WGMMA_WIDTHS)
+# the int8 block kernel's shapes besides pico's and nano's stages at BATCH:
+# atto's C = 40 (15x15) and base's C = 1024 (1x1) at batch 256 (kind, stage)
+INT8_BLOCK_EXTRA = (("convnext_atto", 0), ("convnext_base", 3))
+INT8_BLOCK_EXTRA_BATCH = 256
+INT8_BLOCK_BOUND = ("bytes (x read once, out written once, the int8 weights and the float "
+                    "parameters) at 3.35 TB/s, or the two products' 4 C hidden and the 49 C "
+                    "taps' int8 operations a pixel at the dense int8 tensor-core peak, "
+                    "1,979 TOP/s")
 INT8_FORWARDS = {"mm_ConvNeXt-pico (flagship)": (FLAGSHIP_CONFIG, "convnext_pico", 12),
                  "mm_ConvNeXt-nano": (NANO_CONFIG, "convnext_nano", NANO_LAUNCHES)}
 INT8_BOUND = ("bytes (x read once, out written once) at 3.35 TB/s, or 49 int8 multiply-adds "
@@ -3282,6 +3310,152 @@ def _int8_dw_rows(kind: str, fma_rate: float) -> list:
     return rows
 
 
+def _int8_block_inputs(side: int, c: int, batch: int, seed: int):
+    """A block's float32 input and parameters (``_block_inputs``), its
+    weights quantized as ``prepare_quantized`` quantizes them, and its three
+    activation scales (Python floats) from the plain float32 path on that
+    input, as calibration records them.  Returns (x, the arguments after x
+    of ``ops.quantized.int8_block``)."""
+    import torch
+    import torch.nn.functional as F
+    from btsbot_tpu_torch.ops import quantized as tq
+    from btsbot_tpu_torch.ops.ln_mlp import _layernorm
+
+    x, (dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma) = _block_inputs(
+        side, c, torch.float32, seed, batch=batch)
+
+    def qw(name, w, axes):
+        wq, ws = tq.quantize_weight(w, axes)
+        return tq.forward_layout(name, wq), ws
+
+    dw = qw("b_dw", tq._hwio(dw_w), (0, 1, 2))
+    fc1, fc2 = qw("b_fc1", w1.t(), (0,)), qw("b_fc2", w2.t(), (0,))
+    with torch.inference_mode():
+        s_x = float(tq._act_scale(x))
+        h = _layernorm(tq.int8_dwconv_reference(x, s_x, *dw, dw_b), ln_w, ln_b).reshape(-1, c)
+        s_h = float(tq._act_scale(h))
+        g = F.gelu(tq._int8_dense(h, s_h, fc1, b1, torch.float32), approximate="tanh")
+        s_g = float(tq._act_scale(g))
+    return x, [s_x, s_h, s_g, dw, dw_b, ln_w, ln_b, fc1, b1, fc2, b2, gamma]
+
+
+def _int8_eager_block(x, s_x, s_h, s_g, dw, dw_b, ln_w, ln_b, fc1, b1, fc2, b2, gamma):
+    """The block as PR 11's int8 forward ran it on the card: the depthwise
+    kernel (``int8_dwconv``), then eager passes around ``torch._int_mm``,
+    the dense layers' scales as 0-d tensors on the card."""
+    import torch
+    import torch.nn.functional as F
+    from btsbot_tpu_torch.ops import quantized as tq
+    from btsbot_tpu_torch.ops.ln_mlp import _layernorm
+
+    dtype, c = x.dtype, x.shape[-1]
+    h = tq.int8_dwconv(x, s_x, *dw, dw_b)
+    h = _layernorm(h, ln_w, ln_b).reshape(-1, c)
+    h = F.gelu(tq._int8_dense(h, s_h, fc1, b1, dtype), approximate="tanh")
+    h = tq._int8_dense(h, s_g, fc2, b2, dtype)
+    return x + h.reshape(x.shape) * gamma.to(dtype)
+
+
+def _int8_block_work(m: int, c: int, item: int) -> tuple[float, float]:
+    """(bytes, int8 operations) of one block launch over m pixels of width c
+    at hidden 4c in a type of ``item`` bytes: x read once, out written once,
+    the int8 weights with their float32 scales, the float parameters; both
+    products (2 ops a multiply-add) and the 49 taps."""
+    hid = 4 * c
+    w_bytes = 49 * c + 2 * c * hid + 4 * (c + hid + c) + item * (5 * c + hid)
+    return 2 * m * c * item + w_bytes, 2 * (2 * m * c * hid) + 2 * 49 * m * c
+
+
+def _int8_block_rows() -> list:
+    """The int8 block kernel (csrc/int8_block.cu) against its plain version
+    at pico's and nano's stage shapes at batch BATCH and at
+    INT8_BLOCK_EXTRA at batch INT8_BLOCK_EXTRA_BATCH, in both types: its
+    q_h within one int8 step of the plain version's from the same x, its q_g
+    within one step of the plain version's fed the kernel's q_h, its output
+    bit for bit equal to the plain tail fed the kernel's q_g; with its time,
+    the eager block's of PR 11 (``_int8_eager_block``), the plain version's
+    and the bound."""
+    import torch
+    from btsbot_tpu_torch.ops import quantized as tq
+
+    shapes = [(kind, st, BATCH) for kind in ("convnext_pico", "convnext_nano")
+              for st in _stage_shapes(kind)]
+    shapes += [(kind, _stage_shapes(kind)[stage], INT8_BLOCK_EXTRA_BATCH)
+               for kind, stage in INT8_BLOCK_EXTRA]
+    rows = []
+    for kind, (side, c, depth), batch in shapes:
+        x32, args = _int8_block_inputs(side, c, batch, seed=side * 1000 + c + 7)
+        scales = [torch.tensor(v, dtype=torch.float32, device=DEVICE) for v in args[1:3]]
+        eager_args = [args[0], *scales, *args[3:]]
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            x = x32.to(dtype)
+            tag = f"{kind} ({batch},{side},{side},{c}) {dname}"
+            with torch.inference_mode():
+                out, q_h, q_g = tq._launch_int8_block(x, *args, debug=True)
+                _, plain_h, _ = tq.int8_block_reference(x, *args, debug=True)
+                _, _, plain_g = tq.int8_block_reference(x, *args, debug=True, q_h=q_h)
+                tail = tq.int8_block_reference(x, *args, q_g=q_g)
+                free = tq.int8_block_reference(x, *args)
+                torch.cuda.synchronize()
+                dh = (q_h.int() - plain_h.int()).abs()
+                dg = (q_g.int() - plain_g.int()).abs()
+                err = float((out.float() - tail.float()).abs().max())
+                free_err = float((out.float() - free.float()).abs().max())
+                flips_h, flips_g = int((dh > 0).sum()), int((dg > 0).sum())
+                check(int(dh.max()) <= 1, f"int8_block {tag}: q_h within one int8 step of the "
+                      f"plain version's from the same x ({flips_h} of {dh.numel()} differ)")
+                check(int(dg.max()) <= 1, f"int8_block {tag}: q_g within one step of the plain "
+                      f"version's fed the kernel's q_h ({flips_g} of {dg.numel()} differ)")
+                check(torch.equal(out, tail), f"int8_block {tag}: the output bit for bit equal "
+                      f"to the plain tail fed the kernel's q_g (max|d| = {err:.3g}; against "
+                      f"the free-running plain version {free_err:.3g})")
+                del q_h, q_g, plain_h, plain_g, tail, free, dh, dg
+                ms = time_ms(lambda: tq._launch_int8_block(x, *args))
+                eager_ms = time_ms(lambda: _int8_eager_block(x, *eager_args), iters=5, warmup=1)
+                plain_ms = time_ms(lambda: tq.int8_block_reference(x, *args), iters=5, warmup=1)
+            n_bytes, ops = _int8_block_work(batch * side * side, c, x.element_size())
+            t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS["int8"] * 1e3
+            rows.append(dict(
+                kind=kind, shape=(batch, side, side, c), depth=depth, dtype=dname,
+                max_abs_err=err, free_max_abs_err=free_err, q_h_flips=flips_h,
+                q_g_flips=flips_g, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops
+                else "operations"))
+            r = rows[-1]
+            print(f"  int8_block {tag}: {ms:.4f} ms (PR 11's eager block {eager_ms:.4f}, plain "
+                  f"{plain_ms:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']}, "
+                  f"{r['bound_ms'] / ms:.0%})", flush=True)
+            del x, out
+        del x32, args, eager_args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _int8_block_build(state: dict) -> None:
+    """int8_block.cu's ptxas lines (each kernel's registers and spills) and
+    IGMMA (int8 tensor-core) instructions in every one of its kernels."""
+    from btsbot_tpu_torch.ops import _build
+
+    report = state.get("ptxas", "")
+    kernel = ""
+    for line in report[report.find("== int8_block.cu"):].splitlines()[1:]:
+        if line.startswith("=="):
+            break
+        if "Compiling entry function" in line:
+            m = re.search(r"ILi(\d+)E(f|13__nv_bfloat16)E", line)
+            kernel = (f"int8_block_kernel<{m.group(1)}, "
+                      f"{'float' if m.group(2) == 'f' else 'bf16'}>" if m else line)
+        elif "Used" in line or ("spill" in line and " 0 bytes spill stores" not in line):
+            print(f"  ptxas {kernel}: {line.split(': ', 1)[-1].strip()}", flush=True)
+    igmma = {k: n for k, n in _build.sass_opcode_counts("IGMMA").items()
+             if "int8_block_kernel" in k}
+    print(f"  IGMMA instructions in the int8 block kernels: {sorted(igmma.values())}", flush=True)
+    check(len(igmma) == INT8_BLOCK_KERNELS and min(igmma.values()) > 0,
+          f"all {INT8_BLOCK_KERNELS} int8 block kernels ({len(WGMMA_WIDTHS)} padded widths x "
+          f"float32 / bfloat16) hold IGMMA instructions")
+
+
 @contextlib.contextmanager
 def _patched(module, **fns):
     """``module``'s functions replaced by ``fns`` for the block's length."""
@@ -3296,19 +3470,19 @@ def _patched(module, **fns):
 
 
 def _int8_split(qp, images, meta, iters: int = 5) -> dict:
-    """The int8 forward at batch BATCH split with CUDA events into its
-    depthwise launches, the int8 GEMMs (``torch._int_mm``: stem, downsample,
-    fc1, fc2), the quantize and the dequantize passes, and the rest (LN,
-    GELU, γ and residual, the patchify copies, the heads).  The spans wrap
-    four functions of ``ops.quantized``; each span's calls a forward are
-    checked against the forward's structure, so a renamed or inlined
-    function fails here instead of moving its time into the rest."""
+    """The int8 forward at batch BATCH split with CUDA events into its block
+    launches (csrc/int8_block.cu), the int8 GEMMs (``torch._int_mm``: the
+    stem and the downsamples), their quantize and dequantize passes, and the
+    rest (the stem's and downsamples' LNs and patchify copies, the heads).
+    The spans wrap four functions of ``ops.quantized``; each span's calls a
+    forward are checked against the forward's structure, so a renamed or
+    inlined function fails here instead of moving its time into the rest."""
     import torch
     from btsbot_tpu_torch.ops import quantized as tq
 
-    spans = {"depthwise launches": [], "int8 GEMMs": [], "quantize passes": [],
+    spans = {"block launches": [], "int8 GEMMs": [], "quantize passes": [],
              "dequantize passes": []}
-    wrapped = {"_launch_int8_dwconv": "depthwise launches", "int8_matmul": "int8 GEMMs",
+    wrapped = {"_launch_int8_block": "block launches", "int8_matmul": "int8 GEMMs",
                "quantize_act": "quantize passes", "_dequant": "dequantize passes"}
 
     def timed(fn, key):
@@ -3334,9 +3508,9 @@ def _int8_split(qp, images, meta, iters: int = 5) -> dict:
     out = {k: sum(a.elapsed_time(b) for a, b in v) / iters for k, v in spans.items()}
     out["calls"] = {k: len(v) / iters for k, v in spans.items()}
     blocks, stages = sum(qp["depths"]), len(qp["depths"])
-    gemms = stages + 2 * blocks  # the stem, the downsamples, each block's fc1 and fc2
-    want = {"depthwise launches": blocks, "int8 GEMMs": gemms, "quantize passes": gemms,
-            "dequantize passes": gemms}
+    # one launch a block; a GEMM with its passes for the stem and each downsample
+    want = {"block launches": blocks, "int8 GEMMs": stages, "quantize passes": stages,
+            "dequantize passes": stages}
     check(out["calls"] == want, f"the int8 forward's split wraps {want} calls a forward "
                                 f"({out['calls']})")
     out["forward"] = whole[0].elapsed_time(whole[1]) / iters
@@ -3352,18 +3526,18 @@ def _qparams_on(qp: dict, device: str) -> dict:
 
 
 def _int8_card_trace(qp, images, meta) -> tuple:
-    """The card's float32 int8 forward, with the input and the output of
-    each depthwise launch and each int8 GEMM copied to the host in call
-    order, and its logits."""
+    """The card's float32 int8 forward, with each block launch's input, q_h,
+    q_g and output (the kernel's debug outputs) and each int8 GEMM's input
+    and output copied to the host in call order, and its logits."""
     import torch
     from btsbot_tpu_torch.ops import quantized as tq
 
-    trace = {"dw": [], "mm": []}
-    launch, matmul = tq._launch_int8_dwconv, tq.int8_matmul
+    trace = {"blk": [], "mm": []}
+    launch, matmul = tq._launch_int8_block, tq.int8_matmul
 
-    def dw(x, *args):
-        out = launch(x, *args)
-        trace["dw"].append((x.cpu(), out.cpu()))
+    def blk(x, *args, debug=False):
+        out, q_h, q_g = launch(x, *args, debug=True)
+        trace["blk"].append((x.cpu(), q_h.cpu(), q_g.cpu(), out.cpu()))
         return out
 
     def mm(a, w):
@@ -3371,47 +3545,56 @@ def _int8_card_trace(qp, images, meta) -> tuple:
         trace["mm"].append((a.cpu(), out.cpu()))
         return out
 
-    with _patched(tq, _launch_int8_dwconv=dw, int8_matmul=mm):
+    with _patched(tq, _launch_int8_block=blk, int8_matmul=mm):
         logits = tq.quantized_convnext_logits(qp, images, meta, dtype=torch.float32)
     return trace, logits.cpu()
 
 
 def _int8_replay(host_qp, images, meta, trace, logits) -> dict:
-    """The host's float32 int8 forward (the plain depthwise step, the
-    host's ``_int_mm``) teacher-forced with the card's trace: each
-    depthwise step and each int8 GEMM compares the host's own input with
-    the card's, then takes the card's, and its result must equal the
-    card's bit for bit.  An ulp of a LayerNorm or a GELU between the two
-    devices flips an int8 value by one step at most and leaves the forced
-    forward's features equal; a wrong scale or operand on the card moves a
-    depthwise input or an int8 value further."""
+    """The host's float32 int8 forward (the plain block, the host's
+    ``_int_mm``) teacher-forced with the card's trace.  Each block compares
+    the host's input with the card's, then from the card's input its q_h
+    with the card's q_h, from the card's q_h its q_g with the card's q_g,
+    and from the card's q_g its output, which must equal the card's bit for
+    bit; each int8 GEMM (stem, downsamples) compares its int8 input with the
+    card's and takes the card's, its result bit for bit.  An ulp of a
+    LayerNorm or a GELU between the two devices flips an int8 value by one
+    step at most and leaves the forced forward's features equal; a wrong
+    scale or operand on the card moves a block input, an int8 value or a
+    block output further."""
     import torch
     from btsbot_tpu_torch.ops import quantized as tq
 
-    dws, mms = list(trace["dw"]), list(trace["mm"])
+    blks, mms = list(trace["blk"]), list(trace["mm"])
     st = {"x": 0.0, "step": 0, "flips": 0, "values": 0, "exact": True}
-    reference, matmul = tq.int8_dwconv_reference, tq.int8_matmul
+    reference, matmul = tq.int8_block_reference, tq.int8_matmul
 
-    def dw(x, *args):
-        card_x, card_out = dws.pop(0)
+    def steps(a, b):
+        d = (a.int() - b.int()).abs()
+        st["step"] = max(st["step"], int(d.max()))
+        st["flips"] += int((d > 0).sum())
+        st["values"] += d.numel()
+
+    def blk(x, *args, debug=False):
+        card_x, card_h, card_g, card_out = blks.pop(0)
         st["x"] = max(st["x"], float((x - card_x).abs().max()))
-        out = reference(card_x, *args)
+        with _patched(tq, int8_matmul=matmul):  # the block's own products are not traced
+            steps(reference(card_x, *args, debug=True)[1], card_h)
+            steps(reference(card_x, *args, debug=True, q_h=card_h)[2], card_g)
+            out = reference(card_x, *args, q_g=card_g)
         st["exact"] &= torch.equal(out, card_out)
         return out
 
     def mm(a, w):
         card_a, card_out = mms.pop(0)
-        d = (a.int() - card_a.int()).abs()
-        st["step"] = max(st["step"], int(d.max()))
-        st["flips"] += int((d > 0).sum())
-        st["values"] += d.numel()
+        steps(a, card_a)
         out = matmul(card_a, w)
         st["exact"] &= torch.equal(out, card_out)
         return out
 
-    with _patched(tq, int8_dwconv_reference=dw, int8_matmul=mm):
+    with _patched(tq, int8_block_reference=blk, int8_matmul=mm):
         host = tq.quantized_convnext_logits(host_qp, images, meta, dtype=torch.float32)
-    st["exact"] &= not dws and not mms
+    st["exact"] &= not blks and not mms
     st["logits"] = float((host - logits).abs().max())
     st["holds"] = (st["exact"] and st["x"] <= INT8_X_ATOL and st["step"] <= 1
                    and st["logits"] <= INT8_F32_ATOL)
@@ -3419,7 +3602,7 @@ def _int8_replay(host_qp, images, meta, trace, logits) -> dict:
 
 
 def _int8_host_check(name, qp, images, meta, all_images, all_meta) -> dict:
-    """The card's int8 forward (the kernel, cuBLASLt's int8 GEMMs) at
+    """The card's int8 forward (the block kernel, cuBLASLt's int8 GEMMs) at
     dtype=float32 replayed on the host on the same qparams and INT8_HOST
     alerts (``_int8_replay``); then once with INT8_MUTANT's weight scale
     doubled on the card (a wrong dequantize scale in one block), which the
@@ -3435,7 +3618,7 @@ def _int8_host_check(name, qp, images, meta, all_images, all_meta) -> dict:
     bad_parity = tq.verify_quantized_parity(bad_qp, all_images, all_meta, tol=INT8_TOL)
 
     def show(st):
-        return (f"GEMMs and depthwise steps bit for bit: {st['exact']}, depthwise inputs max|d| "
+        return (f"GEMMs and block outputs bit for bit: {st['exact']}, block inputs max|d| "
                 f"{st['x']:.4g}, int8 values {st['flips']} of {st['values']} differ (by at most "
                 f"{st['step']} steps), logits max|d| {st['logits']:.4g}")
     print(f"  {name}: float32 int8 forward on the card replayed on the host ({len(images)} "
@@ -3451,17 +3634,24 @@ def _int8_host_check(name, qp, images, meta, all_images, all_meta) -> dict:
 
 
 def phase_int8(state: dict) -> None:
-    """The int8 quantized path (ops/quantized.py): the depthwise kernel
-    against its plain version at every stage shape of pico and nano, then
-    the flagship and nano calibrated on 512 triplets and scored on 3072
-    others, within 0.015 of the port's bf16 model on the same weights, the
-    float32 forward on the card against the host's (``_int8_host_check``),
-    with the counted launches, alerts/s and the forward split."""
+    """The int8 quantized path (ops/quantized.py): the block kernel's build
+    (ptxas, IGMMA) and its three checks at every stage shape of pico and
+    nano and at atto's C = 40 and base's C = 1024 (``_int8_block_rows``),
+    the depthwise kernel (calibration's) against its plain version at every
+    stage shape of pico and nano, then the flagship and nano calibrated on
+    512 triplets (the depthwise kernel once a block) and scored on 3072
+    others (the block kernel once a block, the depthwise kernel never),
+    within 0.015 of the port's bf16 model on the same weights, the float32
+    forward on the card against the host's (``_int8_host_check``), with the
+    counted launches, alerts/s and the forward split."""
     import numpy as np
     import torch
     from btsbot_tpu_torch.models.factory import build_model
     from btsbot_tpu_torch.ops import quantized as tq
 
+    _int8_block_build(state)
+    print(f"  the block kernel's bound: {INT8_BLOCK_BOUND}", flush=True)
+    block_rows = _int8_block_rows()
     report = state.get("ptxas", "")
     for line in report[report.find("== int8_dwconv.cu"):].splitlines()[1:]:
         if line.startswith("=="):
@@ -3473,7 +3663,7 @@ def phase_int8(state: dict) -> None:
           f"(the kernel's own floor, not its bound): 49 multiply-adds an output at {how}",
           flush=True)
     rows = _int8_dw_rows("convnext_pico", rate) + _int8_dw_rows("convnext_nano", rate)
-    res = {"rows": rows, "fma_rate": how, "paths": {}}
+    res = {"rows": rows, "block_rows": block_rows, "fma_rate": how, "paths": {}}
     meta_all = np.random.default_rng(83).normal(size=(BATCH, len(META_COLS))).astype(np.float32)
     for name, (config, kind, per_forward) in INT8_FORWARDS.items():
         model = build_model(config, dtype=torch.float32, device=DEVICE, seed=0)
@@ -3482,15 +3672,21 @@ def phase_int8(state: dict) -> None:
         cal = torch.from_numpy(_normalised_triplets(INT8_CAL, seed=81)).to(DEVICE)
         images = torch.from_numpy(_normalised_triplets(BATCH, seed=82)).to(DEVICE)
         meta = torch.from_numpy(meta_all).to(DEVICE)
+        tq.int8_dwconv.launches = 0
         qp = tq.prepare_quantized(weights, config, cal)
+        torch.cuda.synchronize()
+        cal_launches = tq.int8_dwconv.launches
+        check(cal_launches == per_forward, f"{name}: {per_forward} int8_dwconv launches in "
+                                           f"the calibration ({cal_launches})")
         tq.quantized_convnext_logits(qp, images, meta)  # warm
         torch.cuda.synchronize()
-        tq.int8_dwconv.launches = 0
+        tq.int8_block.launches = tq.int8_dwconv.launches = 0
         logits = tq.quantized_convnext_logits(qp, images, meta)
         torch.cuda.synchronize()
-        launches = tq.int8_dwconv.launches
-        check(launches == per_forward,
-              f"{name}: {per_forward} int8_dwconv launches in the int8 forward ({launches})")
+        launches, dw_launches = tq.int8_block.launches, tq.int8_dwconv.launches
+        check(launches == per_forward and dw_launches == 0,
+              f"{name}: {per_forward} int8_block launches in the int8 forward ({launches}), "
+              f"no int8_dwconv launch ({dw_launches})")
         check(logits.shape == (BATCH,) and bool(torch.isfinite(logits.float()).all()),
               f"{name}: finite int8 logits of shape ({BATCH},)")
         parity = tq.verify_quantized_parity(qp, images, meta, tol=INT8_TOL)
@@ -3505,7 +3701,8 @@ def phase_int8(state: dict) -> None:
         ms = time_ms(lambda: torch.sigmoid(
             tq.quantized_convnext_logits(qp, images, meta).float()), iters=5, warmup=1)
         split = _int8_split(qp, images, meta)
-        res["paths"][name] = {"launches": launches, "max_score_diff": parity["max_score_diff"],
+        res["paths"][name] = {"launches": launches, "cal_launches": cal_launches,
+                              "max_score_diff": parity["max_score_diff"],
                               "alerts_per_s": BATCH / ms * 1e3, "split": split, **host}
         print(f"  {name} int8 forward at batch {BATCH}: {BATCH / ms * 1e3:.1f} alerts/s; "
               f"split {split['forward']:.3f} ms = " + ", ".join(
@@ -4024,7 +4221,7 @@ def phase_report(state: dict) -> None:
             if r["dtype"] == "float32"])
         entry["launches_by_width"] = base["launches_by_width"]["tf32x3"]
     kernels += f32_entries
-    kernels.append(_int8_entry(state["int8"]))
+    kernels += _int8_entries(state["int8"])
     _report_widths(state)
     _report_int8(state)
     _report_daemon(state)
@@ -4032,38 +4229,75 @@ def phase_report(state: dict) -> None:
     state["kernels_line"] = json.dumps({"kernels": kernels})
 
 
-def _int8_entry(res: dict) -> dict:
-    """The int8 depthwise kernel (csrc/int8_dwconv.cu): a pico int8 forward's
-    12 launches at batch 3072 in bf16 (each stage's time x its depth), nano's
-    14 beside them; launches counted on both int8 paths."""
-    def forward(kind):
-        rows = [r for r in res["rows"] if r["kind"] == kind and r["dtype"] == "bfloat16"]
-        out = {k: sum(r[k] * r["depth"] for r in rows)
-               for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
-        t = {by: sum(r["bound_ms"] * r["depth"] for r in rows if r["bound_by"] == by)
-             for by in ("bytes", "operations")}
-        out["bound_by"] = "operations" if t["operations"] > t["bytes"] else "bytes"
-        return out
+def _int8_forward(rows: list, kind: str, keys: tuple) -> dict:
+    """A ``kind`` int8 forward's launches of one kernel at batch BATCH in
+    bf16: each stage's row times its depth, summed, with the bound's side."""
+    rows = [r for r in rows if r["kind"] == kind and r["dtype"] == "bfloat16"]
+    out = {k: sum(r[k] * r["depth"] for r in rows) for k in keys}
+    t = {by: sum(r["bound_ms"] * r["depth"] for r in rows if r["bound_by"] == by)
+         for by in ("bytes", "operations")}
+    out["bound_by"] = "operations" if t["operations"] > t["bytes"] else "bytes"
+    return out
 
-    pico, nano = forward("convnext_pico"), forward("convnext_nano")
-    return {"name": "int8_dwconv", "route": "cuda",
-            "source": "btsbot_tpu_torch/csrc/int8_dwconv.cu",
-            "replaces": "btsbot_tpu/ops/quantized.py:199 (no Pallas kernel: the JAX "
-                        "package's int8 depthwise conv is XLA's)",
-            "launches": sum(p["launches"] for p in res["paths"].values()),
-            "launches_by_path": {f"{k} int8 forward": p["launches"]
-                                 for k, p in res["paths"].items()},
-            "max_abs_err": max(r["max_abs_err"] for r in res["rows"]),
-            **pico, "nano_forward": dict(nano, per=f"one convnext_nano int8 forward at batch "
-                                                   f"{BATCH}, bfloat16 ({NANO_LAUNCHES} launches)"),
-            "bound_rate": INT8_BOUND,
-            "per": f"one pico int8 forward at batch {BATCH}, bfloat16 (12 launches); "
-                   "library_ms: cuDNN's float32 depthwise conv over the integer-valued "
-                   "quantized tensor (the same accumulators)"}
+
+def _int8_entries(res: dict) -> list:
+    """The int8 block kernel (csrc/int8_block.cu), launched once a block by
+    the int8 forward, and the int8 depthwise kernel (csrc/int8_dwconv.cu),
+    launched once a block by the calibration: a pico forward's 12 launches
+    at batch 3072 in bf16 (each stage's time x its depth), nano's 14 beside
+    them."""
+    per = f"one pico int8 forward at batch {BATCH}, bfloat16 (12 launches)"
+    nano_per = (f"one convnext_nano int8 forward at batch {BATCH}, bfloat16 ({NANO_LAUNCHES} "
+                f"launches)")
+    keys = ("ms", "eager_ms", "plain_ms", "bound_ms")
+    brows = res["block_rows"]
+    block = {"name": "int8_block", "route": "cuda",
+             "source": "btsbot_tpu_torch/csrc/int8_block.cu",
+             "replaces": "btsbot_tpu/ops/quantized.py:194 (no Pallas kernel: the JAX "
+                         "package's int8 block is XLA's)",
+             "launches": sum(p["launches"] for p in res["paths"].values()),
+             "launches_by_path": {f"{k} int8 forward": p["launches"]
+                                  for k, p in res["paths"].items()},
+             "max_abs_err": max(r["max_abs_err"] for r in brows),
+             **_int8_forward(brows, "convnext_pico", keys), "library_ms": None,
+             "nano_forward": dict(_int8_forward(brows, "convnext_nano", keys), per=nano_per),
+             "free_max_abs_err": max(r["free_max_abs_err"] for r in brows),
+             "q_h_flips": sum(r["q_h_flips"] for r in brows),
+             "q_g_flips": sum(r["q_g_flips"] for r in brows),
+             "bound_rate": INT8_BLOCK_BOUND,
+             "per": per + "; max_abs_err: against the plain tail fed the kernel's q_g (q_h "
+                    "and q_g within one int8 step of the plain version's); eager_ms: PR 11's "
+                    "block (the depthwise kernel, eager passes, torch._int_mm)"}
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    dw = {"name": "int8_dwconv", "route": "cuda",
+          "source": "btsbot_tpu_torch/csrc/int8_dwconv.cu",
+          "replaces": "btsbot_tpu/ops/quantized.py:199 (no Pallas kernel: the JAX "
+                      "package's int8 depthwise conv is XLA's)",
+          "launches": sum(p["cal_launches"] for p in res["paths"].values()),
+          "launches_by_path": {f"{k} calibration (prepare_quantized)": p["cal_launches"]
+                               for k, p in res["paths"].items()},
+          "max_abs_err": max(r["max_abs_err"] for r in res["rows"]),
+          **_int8_forward(res["rows"], "convnext_pico", keys),
+          "nano_forward": dict(_int8_forward(res["rows"], "convnext_nano", keys), per=nano_per),
+          "bound_rate": INT8_BOUND,
+          "per": f"the launches of a pico forward at batch {BATCH}, bfloat16 (12; the "
+                 "calibration runs them once a block, in float32); library_ms: cuDNN's "
+                 "float32 depthwise conv over the integer-valued quantized tensor (the same "
+                 "accumulators)"}
+    return [block, dw]
 
 
 def _report_int8(state: dict) -> None:
     res = state["int8"]
+    print(f"  int8_block (ms: kernel / PR 11's eager block / plain / bound; bound: "
+          f"{INT8_BLOCK_BOUND}; q_h and q_g: values a step from the plain version's) on "
+          f"{state['gpu']}:", flush=True)
+    for r in res["block_rows"]:
+        print(f"    {r['kind']:13s} {str(r['shape']):19s} {r['dtype']:8s} {r['ms']:.4f} / "
+              f"{r['eager_ms']:.4f} / {r['plain_ms']:.4f} / {r['bound_ms']:.4f} "
+              f"({r['bound_by']}) q_h {r['q_h_flips']} q_g {r['q_g_flips']} "
+              f"max|d| given q_g {r['max_abs_err']:.3g}, free {r['free_max_abs_err']:.3g}",
+              flush=True)
     print(f"  int8_dwconv at batch {BATCH} (ms: kernel / plain / cuDNN f32 accumulators / "
           f"bound / the taps on the FP32 pipe; bound: {INT8_BOUND}; FP32 pipe: "
           f"{res['fma_rate']}) on {state['gpu']}:", flush=True)
@@ -4078,12 +4312,12 @@ def _report_int8(state: dict) -> None:
         sp = p["split"]
         print(f"  {name} at batch {BATCH}: int8 {p['alerts_per_s']:.1f}, bf16 "
               f"{rate['bf16']:.1f}, f32 {rate['f32']:.1f} alerts/s; int8 forward "
-              f"{sp['forward']:.3f} ms = depthwise {sp['depthwise launches']:.3f} + int8 GEMMs "
+              f"{sp['forward']:.3f} ms = blocks {sp['block launches']:.3f} + int8 GEMMs "
               f"{sp['int8 GEMMs']:.3f} + quantize {sp['quantize passes']:.3f} + dequantize "
               f"{sp['dequantize passes']:.3f} + rest {sp['rest']:.3f}; max|Δscore| vs bf16 "
               f"{p['max_score_diff']:.4g}; float32 replay on the host: logits max|d| "
               f"{p['replay']['logits']:.4g}, {p['replay']['flips']} int8 values a step apart; "
-              f"{INT8_MUTANT} doubled: depthwise inputs max|d| {p['mutant_replay']['x']:.4g}, "
+              f"{INT8_MUTANT} doubled: block inputs max|d| {p['mutant_replay']['x']:.4g}, "
               f"max|Δscore| vs bf16 {p['mutant_max_score_diff']:.4g} on {state['gpu']}",
               flush=True)
     print("  examples: " + ", ".join(f"{k} {v:.1f} s" for k, v in state["examples"].items())

@@ -3,10 +3,15 @@ with the JAX package's arguments on the CPU:
 
 * ``ops.preprocess.l2_normalize_cutouts(triplets, eps=0.0)``: divides only
   where a cutout's norm exceeds ``eps``; equal to the JAX function's output;
-* ``native.native_available()``: whether the C++ stamp decoder is loaded;
+* ``native.native_available()``: whether the C++ stamp decoder is loaded
+  (always where ``make`` and ``g++`` are on the PATH: the port builds its
+  own copy under a lock), and the same stamps decoded by both packages;
 * ``utils.compile_cache.enable(cache_dir, min_compile_time_s=0.5)``: the
   argument is accepted and has no meaning for the ``nvcc`` build.
 """
+
+import gzip
+import shutil
 
 import numpy as np
 import pytest
@@ -17,6 +22,7 @@ import jax.numpy as jnp
 from btsbot_tpu import native as jax_native
 from btsbot_tpu.ops import preprocess as jax_pre
 from btsbot_tpu_torch import native
+from btsbot_tpu_torch.data.fits import write_fits_image
 from btsbot_tpu_torch.ops import _build
 from btsbot_tpu_torch.ops import preprocess
 from btsbot_tpu_torch.utils import compile_cache
@@ -46,7 +52,19 @@ def test_l2_normalize_cutouts_eps_matches_jax(eps):
 def test_native_available():
     got = native.native_available()
     assert isinstance(got, bool)
-    assert got == (native.decoder() == "native") == jax_native.native_available()
+    assert got == (native.decoder() == "native")
+    if shutil.which("make") and shutil.which("g++"):
+        assert got
+    # whichever decoder each package loaded, both decode the same blobs alike
+    rng = np.random.default_rng(3)
+    blobs = [gzip.compress(write_fits_image((rng.normal(size=(n, n)) * 100).astype(dt)))
+             for n, dt in ((63, np.float32), (58, np.float64), (63, np.int16))]
+    blobs += [b"not gzip", gzip.compress(write_fits_image(np.ones((80, 80), np.float32)))]
+    ours, ours_status = native.decode_stamps(blobs)
+    theirs, their_status = jax_native.decode_stamps(blobs)
+    np.testing.assert_array_equal(ours_status != 0, their_status != 0)
+    assert list(ours_status != 0) == [False, False, False, True, True]
+    np.testing.assert_array_equal(ours[:3], theirs[:3])
 
 
 @pytest.mark.parametrize("args,kwargs", [((0.5,), {}), ((), {"min_compile_time_s": 2.0}),

@@ -22,6 +22,12 @@ widths as in tests/test_quantized.py:
   only float rounding, under the same limits.  A flip can travel on: with
   the JAX test's flax-initialised weights the free-running figures were
   1.4e-3 and 1.8e-4, the teacher-forced ones within these limits;
+* the plain version of the fused block kernel (``int8_block_reference``,
+  the plain side of ``csrc/int8_block.cu``) bit for bit against the
+  composition the forward ran before it, in both types, on the carried
+  qparams' blocks at C = 40 and 80 and 7×7, 3×3 and 1×1 maps; its debug
+  outputs, its tails from a given q_h or q_g, the CUDA wrapper's refusal of
+  a CPU tensor and the admission of widths;
 * bf16 scores within 0.01 (measured 4.7e-4), the same
   ``verify_quantized_parity`` verdict as the JAX function's at its test's
   tol 0.05 (mm_ConvNeXt and image-only ConvNeXt), and a batch of one alert
@@ -41,8 +47,12 @@ import jax.numpy as jnp
 from btsbot_tpu import normalize_config as jax_normalize_config
 from btsbot_tpu.interop.convert import torch_state_dict_to_variables
 from btsbot_tpu.ops import quantized as jq
+import torch.nn.functional as F
+
 from btsbot_tpu_torch.models.factory import build_model
+from btsbot_tpu_torch.ops import _build
 from btsbot_tpu_torch.ops import quantized as tq
+from btsbot_tpu_torch.ops.ln_mlp import _layernorm
 
 CFG = {
     "model_name": "mm_ConvNeXt",
@@ -353,3 +363,87 @@ def test_the_port_module_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          check=True)
     assert out.stdout.strip() == "[]", out.stdout
+
+
+# ------------------------- the fused block, plain -------------------------
+
+def _block_args(mm, pre: str, side: int, dtype):
+    """Block ``pre`` of the carried qparams (its scales, int8 weights and
+    float parameters) on a seeded input of 3 × side × side pixels, with γ
+    drawn at std 0.5 in place of its 1e-6 init, under which the block's
+    branch would vanish from a bfloat16 output."""
+    qp, p = mm["carried"], mm["carried"]["state_dict"]
+    s_, b_ = int(pre[1]), int(pre[3])
+    bp = f"convnext_backbone.stages.{s_}.blocks.{b_}"
+    c = qp["weights"][pre + "_dw"][0].shape[-1]
+    rng = np.random.default_rng(side * 100 + c)
+    x = rng.normal(size=(3, side, side, c)) * 2
+    gamma = torch.from_numpy((rng.normal(size=c) * 0.5).astype(np.float32))
+    sc = qp["scales"]
+    return (torch.from_numpy(x.astype(np.float32)).to(dtype), sc[pre + "_x"], sc[pre + "_h"],
+            sc[pre + "_g"], qp["weights"][pre + "_dw"], p[f"{bp}.conv_dw.bias"],
+            p[f"{bp}.norm.weight"], p[f"{bp}.norm.bias"], qp["weights"][pre + "_fc1"],
+            p[f"{bp}.mlp.fc1.bias"], qp["weights"][pre + "_fc2"], p[f"{bp}.mlp.fc2.bias"],
+            gamma)
+
+
+def _composition(x, s_x, s_h, s_g, dw, dw_b, ln_w, ln_b, fc1, b1, fc2, b2, gamma):
+    """The block as the int8 forward computed it before the fused kernel
+    (0-d tensor scales for the dense layers, as it held them), with its
+    float intermediates' quantizations."""
+    dtype, c = x.dtype, x.shape[-1]
+    t = {k: torch.tensor(v, dtype=torch.float32) for k, v in (("h", s_h), ("g", s_g))}
+    h = tq.int8_dwconv(x, s_x, *dw, dw_b)
+    h = _layernorm(h, ln_w, ln_b).reshape(-1, c)
+    g = F.gelu(tq._int8_dense(h, t["h"], fc1, b1, dtype), approximate="tanh")
+    y = tq._int8_dense(g, t["g"], fc2, b2, dtype)
+    out = x + y.reshape(x.shape) * gamma.to(dtype)
+    return out, tq.quantize_act(h, s_h), tq.quantize_act(g, s_g)
+
+
+BLOCK_CASES = [("s0b0", 3), ("s1b0", 1), ("s1b1", 7)]  # C = 40 at 3x3, C = 80 at 1x1 and 7x7
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("pre,side", BLOCK_CASES)
+def test_int8_block_reference_is_the_composition(mm, pre, side, dtype):
+    args = _block_args(mm, pre, side, dtype)
+    want = _composition(*args)[0]
+    got = tq.int8_block(*args)  # a CPU tensor: the plain version
+    assert got.dtype == dtype and got.shape == args[0].shape
+    assert torch.equal(got, want)
+    assert not torch.equal(got, args[0])  # the block's branch reaches the output
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_int8_block_debug_outputs_and_forced_tails(mm, dtype):
+    args = _block_args(mm, "s1b0", 3, dtype)
+    out, q_h, q_g = tq.int8_block(*args, debug=True)
+    want, want_h, want_g = _composition(*args)
+    assert q_h.dtype == q_g.dtype == torch.int8
+    assert q_h.shape == (9 * 3, 80) and q_g.shape == (9 * 3, 320)
+    assert torch.equal(q_h, want_h) and torch.equal(q_g, want_g) and torch.equal(out, want)
+    # fed its own values, each tail is the free run
+    assert torch.equal(tq.int8_block_reference(*args, q_h=q_h), out)
+    tail, h2, g2 = tq.int8_block_reference(*args, debug=True, q_g=q_g)
+    assert torch.equal(tail, out) and h2 is None and torch.equal(g2, q_g)
+    # and a changed q_g changes the tail
+    assert not torch.equal(tq.int8_block_reference(*args, q_g=-q_g), out)
+
+
+def test_int8_block_wrapper_refuses_a_cpu_tensor(mm):
+    args = _block_args(mm, "s0b0", 1, torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tq._launch_int8_block(*args)
+
+
+@pytest.mark.parametrize("c,ok", [(12, False), (1032, False), (0, False), (40, True),
+                                  (80, True), (1024, True)])
+def test_int8_block_admits_widths(c, ok):
+    if ok:
+        _build.int8_block_admit(c, 4 * c)
+    else:
+        with pytest.raises(ValueError, match="multiple of 8"):
+            _build.int8_block_admit(c, 4 * c)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        _build.int8_block_admit(40, 168)
