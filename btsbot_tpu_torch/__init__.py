@@ -12,11 +12,16 @@ every training and evaluation forward.  Every family is ported
 (mm_ConvNeXt and ConvNeXt with ``convnext_*`` or ``inceptionnext_*`` kinds,
 MaxViT, mm_MaxViT, mm_cnn, um_cnn, um_nn, frozen_fusion), and HF
 snapshots load through ``interop.hf`` (``load_HF_model``,
-``load_model_dir``).
+``load_model_dir``).  Models deploy as ONNX graphs and TF SavedModels
+written with neither package installed (``interop.onnx_export``,
+``interop.savedmodel``).  The facade resolves the JAX package's public
+names lazily, the reference's model class names included.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card and without that request they raise.
 """
+
+import importlib
 
 from .version import __version__
 
@@ -30,24 +35,50 @@ from .core.config import (
 )
 
 
+# Heavier surfaces load lazily so `import btsbot_tpu_torch` stays light:
+# public name → (submodule, attribute).  The names of the JAX package's
+# facade that return or take flax variables (``init_model``,
+# ``torch_state_dict_to_variables``) have no counterpart here.
+_LAZY = {
+    "AlertScorer": ("engine.serve", "AlertScorer"),
+    "AlertStreamScorer": ("engine.serve", "AlertStreamScorer"),
+    "AlertStreamConsumer": ("engine.serve", "AlertStreamConsumer"),
+    "verify_serving_parity": ("engine.serve", "verify_serving_parity"),
+    "MODEL_REGISTRY": ("models.factory", "MODEL_REGISTRY"),
+    "build_model": ("models.factory", "build_model"),
+    "state_dict_from_jax": ("interop.weights", "state_dict_from_jax"),
+    "run_training": ("engine.train", "run_training"),
+    "load_HF_model": ("interop.hf", "load_HF_model"),
+    "load_model_dir": ("interop.hf", "load_model_dir"),
+    "download_HF_model": ("interop.hf", "download_HF_model"),
+    "AlertDataset": ("data.dataset", "AlertDataset"),
+    # the reference's name for the in-memory runtime dataset
+    "FlexibleDataset": ("data.dataset", "AlertDataset"),
+    "export_onnx": ("interop.onnx_export", "export_onnx"),
+    "verify_onnx": ("interop.onnx_export", "verify_onnx"),
+    "export_and_verify_onnx": ("interop.onnx_export", "export_and_verify_onnx"),
+    "export_saved_model": ("interop.savedmodel", "export_saved_model"),
+    "verify_saved_model": ("interop.savedmodel", "verify_saved_model"),
+    "init_from_backbone_checkpoint": ("interop.pretrained", "init_from_backbone_checkpoint"),
+    "distill_to_student": ("engine.distill", "distill_to_student"),
+    "make_report": ("metrics.report", "make_report"),
+    # the reference helper: a model directory → (model, config)
+    "load_BTSbot_model": ("engine.distill", "load_teacher"),
+}
+# the reference facade's model class names, through the registry
+_REFERENCE_MODEL_NAMES = (
+    "MaxViT", "ConvNeXt", "mm_MaxViT", "mm_ConvNeXt",
+    "mm_cnn", "um_cnn", "um_nn", "frozen_fusion",
+)
+
+
 def __getattr__(name):
-    # Heavier surfaces load lazily so `import btsbot_tpu_torch` stays light.
-    if name in ("AlertScorer", "AlertStreamScorer", "AlertStreamConsumer",
-                "verify_serving_parity"):
-        from .engine import serve
-        return getattr(serve, name)
-    if name == "build_model":
-        from .models.factory import build_model
-        return build_model
-    if name == "state_dict_from_jax":
-        from .interop.weights import state_dict_from_jax
-        return state_dict_from_jax
-    if name == "run_training":
-        from .engine.train import run_training
-        return run_training
-    if name in ("load_HF_model", "load_model_dir"):
-        from .interop import hf
-        return getattr(hf, name)
+    if name in _REFERENCE_MODEL_NAMES:
+        from .models.factory import MODEL_REGISTRY
+        return MODEL_REGISTRY[name]
+    if name in _LAZY:
+        module, attr = _LAZY[name]
+        return getattr(importlib.import_module(f".{module}", __name__), attr)
     raise AttributeError(name)
 
 
@@ -59,13 +90,6 @@ __all__ = [
     "IMAGE_ONLY_MODELS",
     "METADATA_ONLY_MODELS",
     "MULTIMODAL_MODELS",
-    "AlertScorer",
-    "AlertStreamScorer",
-    "AlertStreamConsumer",
-    "verify_serving_parity",
-    "build_model",
-    "state_dict_from_jax",
-    "run_training",
-    "load_HF_model",
-    "load_model_dir",
+    *_LAZY,
+    *_REFERENCE_MODEL_NAMES,
 ]

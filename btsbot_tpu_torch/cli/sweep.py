@@ -12,7 +12,7 @@ instead.
 Sweep config format (flat JSON)::
 
     {
-      "base_config": "path/to/train_config.json",
+      "base_config": "btsbot_tpu_torch/train_configs/prod_config.json",
       "method": "random",              // or "grid"
       "count": 5,                      // random trials (grid ignores)
       "seed": 0,

@@ -1,5 +1,5 @@
 """Minimal ONNX protobuf writer/reader (no ``onnx`` / ``protobuf`` deps); a
-copy of btsbot_tpu.interop.onnx_proto (pure Python).
+copy of btsbot_tpu.interop.onnx_proto (pure Python) over ``protowire``.
 
 The reference ships its models to brokers as ONNX graphs (its
 ``to_onnx.py``).  The ``onnx`` package is not a dependency of the port (the
@@ -14,19 +14,20 @@ netron / the ``onnx`` package; the reader parses the same subset back so the
 in-repo numpy evaluator (interop/onnx_numpy.py) can execute emitted graphs
 for cross-runtime verification without onnxruntime.
 
-Wire format primer: every field is ``tag || payload`` where
-``tag = (field_number << 3) | wire_type``; wire types used here are 0
-(varint), 2 (length-delimited: strings, sub-messages, packed arrays), and
-5 (32-bit float).
+The wire format itself (varints, tags, length-delimited fields) is
+``protowire``, shared with the TF SavedModel writer.
 """
 
 from __future__ import annotations
 
 import struct
 from dataclasses import dataclass, field
-from typing import Any, Iterator
+from typing import Any
 
 import numpy as np
+
+from .protowire import fields as _fields
+from .protowire import ff, fs, fv, read_varint as _read_varint, signed as _signed, tag as _tag
 
 # ONNX TensorProto.DataType values (onnx.proto3)
 F32, F64 = 1, 11
@@ -41,50 +42,6 @@ ONNX_TO_NP = {v: k for k, v in NP_TO_ONNX.items()}
 # AttributeProto.AttributeType values
 AT_FLOAT, AT_INT, AT_STRING, AT_TENSOR = 1, 2, 3, 4
 AT_FLOATS, AT_INTS, AT_STRINGS = 6, 7, 8
-
-
-# ----------------------------- wire encoding -----------------------------
-
-def _varint(n: int) -> bytes:
-    if n < 0:
-        n += 1 << 64  # protobuf encodes negatives as 10-byte two's complement
-    out = bytearray()
-    while True:
-        b = n & 0x7F
-        n >>= 7
-        out.append(b | (0x80 if n else 0))
-        if not n:
-            return bytes(out)
-
-
-def _tag(fieldno: int, wire: int) -> bytes:
-    return _varint((fieldno << 3) | wire)
-
-
-def fv(fieldno: int, n: int) -> bytes:
-    """varint field"""
-    return _tag(fieldno, 0) + _varint(int(n))
-
-
-def fs(fieldno: int, data: bytes | str) -> bytes:
-    """length-delimited field (string / bytes / sub-message)"""
-    if isinstance(data, str):
-        data = data.encode()
-    return _tag(fieldno, 2) + _varint(len(data)) + data
-
-
-def ff(fieldno: int, x: float) -> bytes:
-    """32-bit float field"""
-    return _tag(fieldno, 5) + struct.pack("<f", float(x))
-
-
-def f_packed_i64(fieldno: int, values) -> bytes:
-    payload = b"".join(_varint(int(v)) for v in values)
-    return fs(fieldno, payload)
-
-
-def f_packed_f32(fieldno: int, values) -> bytes:
-    return fs(fieldno, struct.pack(f"<{len(values)}f", *values))
 
 
 # ----------------------------- message model -----------------------------
@@ -193,41 +150,7 @@ def encode_model(graph: Graph, opset: int = 17, ir_version: int = 8,
     return out
 
 
-# ----------------------------- wire decoding -----------------------------
-
-def _read_varint(buf: bytes, pos: int) -> tuple[int, int]:
-    result = shift = 0
-    while True:
-        b = buf[pos]
-        pos += 1
-        result |= (b & 0x7F) << shift
-        if not b & 0x80:
-            return result, pos
-        shift += 7
-
-
-def _fields(buf: bytes) -> Iterator[tuple[int, int, Any]]:
-    """Yield (field_number, wire_type, value) over a message payload."""
-    pos = 0
-    while pos < len(buf):
-        tag, pos = _read_varint(buf, pos)
-        fieldno, wire = tag >> 3, tag & 7
-        if wire == 0:
-            val, pos = _read_varint(buf, pos)
-        elif wire == 2:
-            ln, pos = _read_varint(buf, pos)
-            val = buf[pos:pos + ln]
-            pos += ln
-        elif wire == 5:
-            val = struct.unpack("<f", buf[pos:pos + 4])[0]
-            pos += 4
-        elif wire == 1:
-            val = struct.unpack("<d", buf[pos:pos + 8])[0]
-            pos += 8
-        else:
-            raise ValueError(f"Unsupported wire type {wire}")
-        yield fieldno, wire, val
-
+# ----------------------------- decoding -----------------------------
 
 def _decode_tensor(buf: bytes) -> Tensor:
     dims, dtype, name, raw = [], F32, "", b""
@@ -257,11 +180,6 @@ def _decode_tensor(buf: bytes) -> Tensor:
     else:
         arr = np.asarray(int64_data, np_dtype).reshape(dims)
     return Tensor(name, arr)
-
-
-def _signed(v: int) -> int:
-    """Recover a negative int64 from its unsigned varint encoding."""
-    return v - (1 << 64) if v >= (1 << 63) else v
 
 
 def _decode_attr(buf: bytes) -> tuple[str, Any]:

@@ -49,7 +49,7 @@ convnext_pico, 63×63×3 triplets + 25 metadata features) on the card:
    optimizer, and a ``torch.profiler`` table of kernel time by name with the
    device's busy share (information only);
 7. the other families at full width: the production ``mm_cnn`` (its
-   configuration read from ``btsbot_tpu/train_configs/prod_config.json``),
+   configuration read from ``btsbot_tpu_torch/train_configs/prod_config.json``),
    ``um_cnn`` and ``um_nn`` at its widths, the image-only ``ConvNeXt``-pico
    and ``frozen_fusion`` over a ConvNeXt-pico and a um_nn branch:
    ``AlertScorer`` in bf16 and f32 at batch 3072 on 3,572 alerts (12
@@ -61,7 +61,9 @@ convnext_pico, 63×63×3 triplets + 25 metadata features) on the card:
    mm_cnn checkpoint (``tests/fixtures/ref_trained_mm_cnn``) against its
    recorded scores in f32, mm_cnn's forward split into its four convs and
    the rest beside their FLOP bound, ``cli.train`` for mm_cnn (2 epochs at
-   batch 64), ConvNeXt-pico and um_nn (1 epoch each), then ``frozen_fusion``
+   batch 64) and its run exported with ``cli.export --format saved_model``
+   (the TF SavedModel verified against the card's f32 forward on 16
+   alerts), ConvNeXt-pico and um_nn (1 epoch each), then ``frozen_fusion``
    for 1 epoch from those two run directories with its branch parameters
    bit-identical afterwards; alerts/s and mm_cnn's train steps/s
    (information only);
@@ -145,14 +147,19 @@ convnext_pico, 63×63×3 triplets + 25 metadata features) on the card:
     at batch 64 on the built split (12 block launches a step and an eval
     batch), ``cli.export`` (ONNX verified on the card's f32 forward with
     TF32 off, ``close: true``, 12 block launches; then the same artifact at
-    256 alerts; then ``--format torch``, whose ``pytorch_model.bin`` loads
+    256 alerts; then ``--format saved_model``, the TF SavedModel verified
+    the same way at 16 alerts by its numpy evaluator (12 block launches),
+    and the unchanged artifact refused against the weights with
+    ``combined_head.5.bias`` + 0.05; then ``--format torch``, whose
+    ``pytorch_model.bin`` loads
     ``strict=True`` and scores the val split within 1e-6 of the run's best
     epoch), ``cli.publish --no-upload`` and ``load_model_dir`` (the same
     scores), an ``inceptionnext_pico`` mm_ConvNeXt exported and verified
     through 12 ``fused_ln_mlp`` launches, and ``center_crop`` /
     ``crop_triplets`` / ``nan_row_mask`` on the card against numpy; each
-    CLI's seconds, the ONNX file's size, the numpy evaluator's alerts/s
-    against the card's f32 forward on the same 256 alerts (information
+    CLI's seconds, the ONNX file's and the SavedModel's sizes, the ONNX
+    numpy evaluator's alerts/s against the card's f32 forward on the same
+    256 alerts and the SavedModel evaluator's seconds for 16 (information
     only);
 16. int8, the quantized path (``ops/quantized.py``): the int8 block kernel
     (``csrc/int8_block.cu``, one launch a block) with its ptxas lines and
@@ -1201,11 +1208,11 @@ KERNEL_OF = {"ConvNeXt": "convnext_block_fused", "frozen_fusion": "convnext_bloc
 
 
 def _family_configs() -> dict:
-    """The production mm_cnn (``btsbot_tpu/train_configs/prod_config.json``,
+    """The production mm_cnn (``btsbot_tpu_torch/train_configs/prod_config.json``,
     read as data), um_cnn and um_nn at its widths, the image-only
     ConvNeXt-pico, and frozen_fusion over a ConvNeXt-pico and a um_nn
     branch; each trains on the smoke split (``train_data_version`` v12)."""
-    with open(os.path.join(ROOT, "btsbot_tpu", "train_configs", "prod_config.json")) as f:
+    with open(os.path.join(ROOT, "btsbot_tpu_torch", "train_configs", "prod_config.json")) as f:
         prod = json.load(f)
     train = {k: prod[k] for k in ("learning_rate", "beta_1", "beta_2", "batch_size",
                                   "warmup_epochs", "random_seed", "metadata_cols")}
@@ -1511,6 +1518,7 @@ def _branches_kept(result, dirs: dict) -> bool:
 def phase_families(state: dict) -> None:
     import numpy as np
     import torch
+    from btsbot_tpu_torch.cli.export import main as export_cli
     from btsbot_tpu_torch.core.config import normalize_config
     from btsbot_tpu_torch.data.dataset import load_split
     from btsbot_tpu_torch.engine.checkpoint import load_model_checkpoint
@@ -1571,6 +1579,13 @@ def phase_families(state: dict) -> None:
     d = float(np.abs(scores - result["best_val_scores"]).max())
     check(d <= 1e-6, f"mm_cnn best_model.pth loads strict and scores the val split within "
                      f"1e-6 of the trainer's best epoch (max|d|={d:.3g})")
+    export_cli([result["model_dir"], "--format", "saved_model", "--device", DEVICE])
+    with open(os.path.join(result["model_dir"], "saved_model", "verification.json")) as f:
+        sm = json.load(f)
+    check(sm["close"] and sm["n"] == 16,
+          f"mm_cnn cli.export --format saved_model: the TF SavedModel (convs, pools, folded "
+          f"BatchNorm) verified against the card's f32 forward, close: true, max|d| = "
+          f"{sm['max_diff']:.3g}")
     branch_dirs = {}
     for name in ("ConvNeXt", "um_nn"):
         r, _, n = _train_family(configs[name], name, data_dir, out_root, name)
@@ -3028,7 +3043,8 @@ def phase_lifecycle(state: dict) -> None:
     """The dataset-to-deployment path on the card: acquisition through a
     replaying Kowalski client (ingest on the card), ``cli.dataset build``,
     ``cli.train``, ``cli.export`` (ONNX verified on the card at 16 and 256
-    alerts, and the torch checkpoint), ``cli.publish --no-upload`` and
+    alerts, the TF SavedModel at 16 and a mutant refused, and the torch
+    checkpoint), ``cli.publish --no-upload`` and
     ``load_model_dir``; an ``inceptionnext_pico`` export verified through
     ``fused_ln_mlp``; the crop ops against numpy."""
     import numpy as np
@@ -3047,6 +3063,8 @@ def phase_lifecycle(state: dict) -> None:
     from btsbot_tpu_torch.interop.onnx_export import (export_onnx, float32_exact,
                                                       verify_onnx)
     from btsbot_tpu_torch.interop.onnx_numpy import run_model
+    from btsbot_tpu_torch.interop.savedmodel import verify_saved_model
+    from btsbot_tpu_torch.interop.savedmodel_numpy import run_saved_model
     from btsbot_tpu_torch.models.factory import build_model
     from btsbot_tpu_torch.ops.preprocess import center_crop, crop_triplets, nan_row_mask
 
@@ -3139,6 +3157,33 @@ def phase_lifecycle(state: dict) -> None:
           f"the same artifact at batch {LIFECYCLE_VERIFY}: close: true, max|d| = "
           f"{big['max_diff']:.3g} (12 block launches)")
 
+    # ---- cli.export --format saved_model: the TF SavedModel verified on the card
+    counted("cli.export saved_model", lambda: _timed_cli(
+        "cli.export saved_model", export_cli,
+        [run, "--format", "saved_model", "--device", DEVICE], secs))
+    sm_dir = os.path.join(run, "saved_model")
+    with open(os.path.join(sm_dir, "verification.json")) as f:
+        sm_report = json.load(f)
+    sm_mb = os.path.getsize(os.path.join(sm_dir, "saved_model.pb")) / 2 ** 20
+    t16, m16 = _verification_inputs(config)
+    t0 = time.perf_counter()
+    run_saved_model(sm_dir, {"image": t16, "metadata": m16})
+    sm_eval_s = time.perf_counter() - t0
+    check(sm_report["close"] and sm_report["n"] == 16
+          and launches["cli.export saved_model"]["convnext_block_fused"] == 12,
+          f"cli.export --format saved_model: TF SavedModel ({sm_mb:.2f} MiB) verified against "
+          f"the card's f32 forward (12 block launches), close: true, max|d| = "
+          f"{sm_report['max_diff']:.3g} ({secs['cli.export saved_model']:.1f} s; its numpy "
+          f"evaluator {sm_eval_s:.2f} s for 16 alerts on the host)")
+    # a check that cannot fail proves nothing: the same artifact against
+    # weights with the last bias shifted
+    shifted = {**sd, "combined_head.5.bias": sd["combined_head.5.bias"] + 0.05}
+    mutant = counted("verify saved_model mutant", lambda: verify_saved_model(
+        sm_dir, config, shifted, t16, m16, device=DEVICE))
+    check(not mutant["close"],
+          f"the unchanged SavedModel against combined_head.5.bias + 0.05: close: false, "
+          f"max|d| = {mutant['max_diff']:.3g}")
+
     # the numpy evaluator against the card's f32 forward on the same alerts
     with open(onnx_path, "rb") as f:
         model_bytes = f.read()
@@ -3196,7 +3241,11 @@ def phase_lifecycle(state: dict) -> None:
     total = {k: sum(v[k] for v in launches.values())
              for k in ("convnext_block_fused", "fused_ln_mlp")}
     state["lifecycle"] = {"secs": secs, "launches": launches, "total": total,
-                          "onnx_mb": onnx_mb, "max_diff": (report["max_diff"],
+                          "onnx_mb": onnx_mb, "saved_model_mb": sm_mb,
+                          "saved_model_eval_s": sm_eval_s,
+                          "saved_model_max_diff": (sm_report["max_diff"],
+                                                   mutant["max_diff"]),
+                          "max_diff": (report["max_diff"],
                                                            big["max_diff"],
                                                            inc_report["max_diff"])}
 
@@ -4083,7 +4132,8 @@ def phase_report(state: dict) -> None:
     # this slice's path: acquisition → cli.dataset → cli.train → cli.export
     # (ONNX verified on the card) → cli.publish, and an InceptionNeXt export
     lc = state["lifecycle"]["total"]
-    paths["lifecycle (cli.train 1 epoch + ONNX verifications at 16 and 256 alerts)"] = \
+    paths["lifecycle (cli.train 1 epoch + ONNX verifications at 16 and 256 alerts + "
+          "SavedModel verifications at 16, the mutant's too)"] = \
         lc["convnext_block_fused"]
     ln_mlp_paths[f"lifecycle ({LIFECYCLE_INCEPTION} ONNX verification)"] = lc["fused_ln_mlp"]
     # this slice's path: the mesh (run_training at world size 1 under NCCL;
@@ -4377,6 +4427,10 @@ def _report_lifecycle(state: dict) -> None:
           f"{' / '.join(f'{d:.3g}' for d in lc['max_diff'])} (16 / {LIFECYCLE_VERIFY} alerts "
           f"/ {LIFECYCLE_INCEPTION}); numpy evaluator {host:.1f} alerts/s against the card's "
           f"f32 forward {card:.1f} alerts/s on {LIFECYCLE_VERIFY} alerts", flush=True)
+    print(f"  lifecycle: saved_model.pb {lc['saved_model_mb']:.2f} MiB; max|d| "
+          f"{lc['saved_model_max_diff'][0]:.3g} (the mutant's "
+          f"{lc['saved_model_max_diff'][1]:.3g}); its numpy evaluator "
+          f"{lc['saved_model_eval_s']:.2f} s for 16 alerts (host)", flush=True)
     print(f"  lifecycle launches: {lc['total']} = " + "; ".join(
         f"{k} {v['convnext_block_fused']} / {v['fused_ln_mlp']}"
         for k, v in lc["launches"].items() if any(v.values())), flush=True)

@@ -1,5 +1,10 @@
-"""Three public signatures of the JAX package that the port keeps, called
-with the JAX package's arguments on the CPU:
+"""The JAX package's public surface in the port.
+
+Every name of ``btsbot_tpu.__all__`` resolves in ``btsbot_tpu_torch`` but
+the two that take or return flax variables (``DELIBERATE``); the reference
+facade's model class names are the classes ``build_model`` makes.  Three
+public signatures the port keeps, called with the JAX package's arguments
+on the CPU:
 
 * ``ops.preprocess.l2_normalize_cutouts(triplets, eps=0.0)``: divides only
   where a cutout's norm exceeds ``eps``; equal to the JAX function's output;
@@ -19,13 +24,55 @@ import torch
 
 import jax.numpy as jnp
 
+import btsbot_tpu
+import btsbot_tpu_torch
 from btsbot_tpu import native as jax_native
 from btsbot_tpu.ops import preprocess as jax_pre
 from btsbot_tpu_torch import native
+from btsbot_tpu_torch.models import maxvit
+from btsbot_tpu_torch.models.factory import build_model
 from btsbot_tpu_torch.data.fits import write_fits_image
 from btsbot_tpu_torch.ops import _build
 from btsbot_tpu_torch.ops import preprocess
 from btsbot_tpu_torch.utils import compile_cache
+from test_torch_onnx_export import ATTO, MAXVIT_CUT, _cfg, _fusion
+
+# flax-variable entry points with no PyTorch counterpart
+DELIBERATE = {"init_model", "torch_state_dict_to_variables"}
+MODEL_CONFIGS = {
+    "mm_cnn": _cfg("mm_cnn"), "um_cnn": _cfg("um_cnn"), "um_nn": _cfg("um_nn"),
+    "ConvNeXt": _cfg("ConvNeXt", model_kind=ATTO),
+    "mm_ConvNeXt": _cfg("mm_ConvNeXt", model_kind=ATTO),
+    "MaxViT": _cfg("MaxViT", model_kind=MAXVIT_CUT),
+    "mm_MaxViT": _cfg("mm_MaxViT", model_kind=MAXVIT_CUT),
+    "frozen_fusion": _fusion(_cfg("um_cnn")),
+}
+
+
+def test_every_public_name_of_the_jax_package_resolves_in_the_port():
+    assert set(btsbot_tpu.__all__) - set(btsbot_tpu_torch.__all__) == DELIBERATE
+    for name in btsbot_tpu.__all__:
+        if name not in DELIBERATE:
+            assert getattr(btsbot_tpu_torch, name) is not None, name
+    from btsbot_tpu_torch import (FlexibleDataset, export_onnx, export_saved_model,
+                                  load_BTSbot_model, mm_ConvNeXt)
+    from btsbot_tpu_torch.data.dataset import AlertDataset
+    from btsbot_tpu_torch.engine.distill import load_teacher
+    from btsbot_tpu_torch.interop import onnx_export, savedmodel
+    assert FlexibleDataset is AlertDataset and load_BTSbot_model is load_teacher
+    assert export_onnx is onnx_export.export_onnx
+    assert export_saved_model is savedmodel.export_saved_model
+    assert mm_ConvNeXt.__module__ == "btsbot_tpu_torch.models.convnext"
+    with pytest.raises(AttributeError):
+        btsbot_tpu_torch.init_model
+
+
+@pytest.mark.parametrize("name", sorted(MODEL_CONFIGS))
+def test_reference_model_names_are_the_classes_build_model_makes(name, monkeypatch):
+    assert name in btsbot_tpu.__all__
+    monkeypatch.setitem(maxvit.MAXVIT_CONFIGS, "maxvit_tiny",
+                        {"depths": (1, 1), "dims": (32, 64), "stem_width": 32})
+    assert type(build_model(MODEL_CONFIGS[name], device="cpu")) is getattr(btsbot_tpu_torch, name)
 
 
 def _triplets():

@@ -171,7 +171,7 @@ def trained(built):
     return result["model_dir"]
 
 
-def test_export_both_formats_and_refuse_saved_model(trained, capsys):
+def test_export_every_format(trained, capsys, monkeypatch):
     out = export_cli([trained, "--device", "cpu"])
     assert out == os.path.join(trained, "model.onnx")
     with open(os.path.join(trained, "model.verification.json")) as f:
@@ -186,8 +186,20 @@ def test_export_both_formats_and_refuse_saved_model(trained, capsys):
     model = build_model(UM_NN, device="cpu")
     model.load_state_dict(sd, strict=True)
 
-    with pytest.raises(SystemExit, match="no PyTorch counterpart and is not ported"):
-        export_cli([trained, "--format", "saved_model"])
+    out = export_cli([trained, "--format", "saved_model", "--device", "cpu"])
+    assert out == os.path.join(trained, "saved_model")
+    assert os.path.isfile(os.path.join(out, "saved_model.pb"))
+    assert os.path.isdir(os.path.join(out, "variables"))
+    with open(os.path.join(out, "verification.json")) as f:
+        report = json.load(f)
+    assert report["close"] and report["n"] == 16 and report["artifact"] == "tf_saved_model"
+    assert "Verified vs the port's f32 forward" in capsys.readouterr().out
+    # a forward that disagrees with the artifact fails the command
+    from btsbot_tpu_torch.interop import savedmodel
+    real = savedmodel.port_logits
+    monkeypatch.setattr(savedmodel, "port_logits", lambda *a, **k: real(*a, **k) + 0.05)
+    with pytest.raises(SystemExit, match="Verification FAILED"):
+        export_cli([trained, "--format", "saved_model", "--device", "cpu"])
 
 
 def test_publish_no_upload_then_load_model_dir(trained, capsys):

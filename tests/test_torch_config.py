@@ -2,12 +2,14 @@
 
 ``btsbot_tpu_torch`` imports torch, numpy and the standard library only: no
 jax, no flax, nothing of ``btsbot_tpu`` (whose ``__init__`` loads flax), and
-no pandas.  A subprocess import and an AST scan of every module (and of
-``chip_smoke.py``) hold it to that.  The optional packages (matplotlib for
-the diagnostic figure, wandb, timm, umap; the data layer's and the artifact
-path's clients: requests, PIL, astropy, penquins, datasets, huggingface_hub,
-onnx, onnxruntime) are imported only inside the functions that use them:
-never at a module's top level, and not by importing any module of the port.
+no pandas, no protobuf package (``google.protobuf``).  A subprocess import and an
+AST scan of every module (and of ``chip_smoke.py``) hold it to that.  The
+optional packages (matplotlib for the diagnostic figure, wandb, timm, umap;
+the data layer's and the artifact path's clients: requests, PIL, astropy,
+penquins, datasets, huggingface_hub, onnx, onnxruntime, tensorflow) are
+imported only inside the functions that use them: never at a module's top
+level, and not by importing any module of the port.  The port's train
+configs are the JAX package's, byte for byte.
 """
 
 import ast
@@ -29,9 +31,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "btsbot_tpu", "pandas",
              "matplotlib", "sklearn")
 # allowed inside a function body only (imported when a figure is drawn, a
 # run is logged to wandb, a timm backbone fetched, a UMAP projection made, a
-# service queried, a dataset or model published, an ONNX runtime asked)
+# service queried, a dataset or model published, an ONNX runtime or
+# TensorFlow asked)
 OPTIONAL = ("matplotlib", "wandb", "timm", "umap", "requests", "PIL", "astropy", "penquins",
-            "datasets", "huggingface_hub", "onnx", "onnxruntime")
+            "datasets", "huggingface_hub", "onnx", "onnxruntime", "tensorflow")
 
 
 @pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
@@ -42,6 +45,14 @@ def test_normalize_config_agrees_with_jax(path):
     assert dict(got) == dict(want)
     for prop in ("model_category", "need_triplets", "need_metadata"):
         assert getattr(got, prop) == getattr(want, prop)
+
+
+def test_the_ports_train_configs_are_the_jax_packages():
+    ours = sorted(glob.glob(os.path.join(REPO, "btsbot_tpu_torch", "train_configs", "*.json")))
+    assert [os.path.basename(p) for p in ours] == [os.path.basename(p) for p in CONFIGS[:-1]]
+    for path, theirs in zip(ours, CONFIGS):
+        with open(path, "rb") as a, open(theirs, "rb") as b:
+            assert a.read() == b.read(), path
 
 
 @pytest.mark.parametrize("raw", [
@@ -84,12 +95,15 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import btsbot_tpu_torch.cli.dataset, btsbot_tpu_torch.cli.download\n"
         "import btsbot_tpu_torch.interop.onnx_proto, btsbot_tpu_torch.interop.onnx_numpy\n"
         "import btsbot_tpu_torch.interop.onnx_export, btsbot_tpu_torch.cli.export\n"
+        "import btsbot_tpu_torch.interop.savedmodel, btsbot_tpu_torch.interop.savedmodel_numpy\n"
         "import btsbot_tpu_torch.interop.publish, btsbot_tpu_torch.cli.publish\n"
         "import btsbot_tpu_torch.parallel.mesh, btsbot_tpu_torch.parallel.sharding\n"
         "import btsbot_tpu_torch.parallel.multihost_check, btsbot_tpu_torch.parallel.dryrun\n"
         "btsbot_tpu_torch.AlertScorer, btsbot_tpu_torch.build_model\n"
         "btsbot_tpu_torch.AlertStreamConsumer\n"
-        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + OPTIONAL!r}]\n"
+        "[getattr(btsbot_tpu_torch, n) for n in btsbot_tpu_torch.__all__]\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + OPTIONAL!r}\n"
+        "       or m.startswith('google.protobuf')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -126,7 +140,8 @@ def _imports(path, top_level_only=False):
     os.path.join(REPO, "btsbot_tpu_torch", "**", "*.py"), recursive=True))
     + [os.path.join(REPO, "chip_smoke.py")], ids=lambda p: os.path.relpath(p, REPO))
 def test_no_jax_import_anywhere_in_the_port(path):
-    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN
+    bad = [m for m in _imports(path) if (m.split(".")[0] in FORBIDDEN
+                                          or m.startswith("google.protobuf"))
            and m.split(".")[0] not in OPTIONAL]
     assert not bad, f"{path} imports {bad}"
     eager = [m for m in _imports(path, top_level_only=True)
