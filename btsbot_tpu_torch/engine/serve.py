@@ -43,6 +43,7 @@ from ..models.factory import build_model, example_inputs
 from ..ops.preprocess import l2_normalize_cutouts, preprocess_triplets
 from ..parallel.mesh import all_gather_rows, batch_sharding
 from ..parallel.sharding import shard_module
+from ..utils.profiling import annotate, count
 
 
 def _bucket_ladder(batch_size: int, bucket_sizes=None, mesh=None) -> list[int]:
@@ -109,15 +110,18 @@ def _padded_on(rows: np.ndarray, bs: int, device,
     """rows zero-padded to bs rows, on ``device`` in ``dtype``.  A narrower
     type (bfloat16) is cast on the host, round to nearest even, so only its
     bytes cross to the card."""
-    if len(rows) == bs:
-        out = np.ascontiguousarray(rows, dtype=np.float32)
-    else:
-        out = np.zeros((bs,) + rows.shape[1:], np.float32)
-        out[:len(rows)] = rows
-    host = torch.from_numpy(out)
-    if dtype != torch.float32:
-        host = host.to(dtype)
-    return host.to(device)
+    with annotate("serve.pad"):
+        if len(rows) == bs:
+            out = np.ascontiguousarray(rows, dtype=np.float32)
+        else:
+            out = np.zeros((bs,) + rows.shape[1:], np.float32)
+            out[:len(rows)] = rows
+        host = torch.from_numpy(out)
+        if dtype != torch.float32:
+            host = host.to(dtype)
+    count("serve.h2d_bytes", host.nbytes)
+    with annotate("serve.h2d"):
+        return host.to(device)
 
 
 class AlertScorer:
@@ -173,18 +177,23 @@ class AlertScorer:
         for start in range(0, n, self.batch_size):
             stop = min(start + self.batch_size, n)
             bs = _pick_bucket(self.bucket_sizes, stop - start)
-            if share is None:
-                scores = self._score(*(
-                    None if rows is None else _padded_on(rows[start:stop], bs, self.device)
-                    for rows in (triplets, metadata)))
-            else:  # this rank's rows of the padded batch, then every rank's scores
-                take = share.rows(bs)
-                scores = all_gather_rows(self._score(*(
-                    None if rows is None else
-                    _padded_on(rows[start:stop][take], take.stop - take.start, self.device)
-                    for rows in (triplets, metadata))), self.mesh.data_group,
-                    self.mesh.shape["data"])
-            out[start:stop] = scores[:stop - start].cpu().numpy()
+            # under a mesh, this rank's rows of the padded batch
+            take = slice(0, bs) if share is None else share.rows(bs)
+            with annotate("serve.batch"):
+                count("serve.batches")
+                count("serve.rows", len(range(stop - start)[take]))
+                count("serve.padded_rows", take.stop - take.start)
+                inputs = [None if rows is None else
+                          _padded_on(rows[start:stop][take], take.stop - take.start,
+                                     self.device)
+                          for rows in (triplets, metadata)]
+                with annotate("serve.forward"):
+                    scores = self._score(*inputs)
+                with annotate("serve.readback"):
+                    if share is not None:  # every rank's scores, in order
+                        scores = all_gather_rows(scores, self.mesh.data_group,
+                                                 self.mesh.shape["data"])
+                    out[start:stop] = scores[:stop - start].cpu().numpy()
         return out
 
     def throughput(self, iters: int = 20) -> float:

@@ -59,6 +59,7 @@ import torch.distributed as dist
 from ..ops.augment import augment_triplets
 from ..parallel.mesh import all_gather_rows
 from ..parallel.sharding import shard_module
+from ..utils.profiling import annotate
 from .loss import binary_kd_loss, weighted_bce_with_logits
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -81,10 +82,11 @@ def to_device(x: np.ndarray | None, device: torch.device):
     copy is queued without waiting for the card."""
     if x is None:
         return None
-    t = torch.from_numpy(np.ascontiguousarray(x))
-    if device.type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
+    with annotate("feed.to_device"):
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if device.type != "cuda":
+            return t.to(device)
+        return t.pin_memory().to(device, non_blocking=True)
 
 
 def model_inputs(config, images, metadata, dtype):
@@ -158,6 +160,10 @@ def make_train_step(config, plain: bool = False, teacher=None, mesh=None):
         temperature = float(config.get("distill_temperature", 2.0))
 
     def train_step(state, images, metadata, labels, pos_weight):
+        with annotate("step.run"):
+            return run_step(state, images, metadata, labels, pos_weight)
+
+    def run_step(state, images, metadata, labels, pos_weight):
         model, opt = state.model, state.optimizer
         if state.mesh is not mesh:
             raise ValueError("the train state's mesh is not the step's: build the "
@@ -165,26 +171,31 @@ def make_train_step(config, plain: bool = False, teacher=None, mesh=None):
         model.train()
         state.generator.manual_seed(step_seed(state.seed, state.step))
         if do_augment:
-            images = augment_triplets(state.generator, images, **aug_flags, rows=rows)
-        if teacher is not None:
-            with torch.no_grad():
-                t_logits = teacher(*_typed_inputs(config, images, metadata, teacher_dtype),
-                                   plain=plain)
-        image_input, metadata_input = model_inputs(config, images, metadata, dtype)
-        logits = model(image_input=image_input, metadata_input=metadata_input,
-                       plain=plain)
-        loss = weighted_bce_with_logits(logits, labels, pos_weight)
-        if teacher is not None:
-            loss = alpha * loss + (1.0 - alpha) * binary_kd_loss(logits, t_logits,
-                                                                 temperature)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
+            with annotate("step.augment"):
+                images = augment_triplets(state.generator, images, **aug_flags, rows=rows)
+        with annotate("step.forward"):
+            if teacher is not None:
+                with torch.no_grad():
+                    t_logits = teacher(*_typed_inputs(config, images, metadata,
+                                                      teacher_dtype), plain=plain)
+            image_input, metadata_input = model_inputs(config, images, metadata, dtype)
+            logits = model(image_input=image_input, metadata_input=metadata_input,
+                           plain=plain)
+            loss = weighted_bce_with_logits(logits, labels, pos_weight)
+            if teacher is not None:
+                loss = alpha * loss + (1.0 - alpha) * binary_kd_loss(logits, t_logits,
+                                                                     temperature)
+        with annotate("step.backward"):
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
         if mesh is not None:
-            average_gradients([p for g in opt.param_groups for p in g["params"]], mesh)
-        lr = state.lr_schedule(state.step)
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
+            with annotate("step.allreduce"):
+                average_gradients([p for g in opt.param_groups for p in g["params"]], mesh)
+        with annotate("step.optimizer"):
+            lr = state.lr_schedule(state.step)
+            for group in opt.param_groups:
+                group["lr"] = lr
+            opt.step()
         state.step += 1
         logits = logits.detach().reshape(-1)
         scores = torch.sigmoid(logits.float())

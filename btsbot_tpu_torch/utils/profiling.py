@@ -1,81 +1,86 @@
-"""Profiling and timing (port of btsbot_tpu/utils/profiling.py).
+"""Profiling: spans and counters on the profiler's clock.
 
 * ``trace`` — a context manager around ``torch.profiler`` that writes a
   Chrome trace (``trace.json``, loadable in chrome://tracing or Perfetto)
-  into a directory: the host's operators and, on the card, its kernels;
-* ``annotate`` — a named region: ``torch.profiler.record_function`` (shown
-  on the profiler's timeline) plus an NVTX range when CUDA is available;
-* ``time_device_fn`` — seconds per call of ``fn(*args)``: on the card CUDA
-  events around ``iters`` calls after a warm-up (the best of ``reps``
-  runs), on the CPU ``time.perf_counter``.  PyTorch returns before the card
-  finishes, so a host clock without a synchronise would time the enqueue.
+  into a directory: the host's operators, the program's spans and, on the
+  card, its kernels and copies, on one timeline; and beside it
+  ``counters.json``, the counters of the traced code;
+* ``annotate`` — a named span: a ``torch.profiler.record_function`` range
+  while a profiler is recording, else a shared no-op context;
+* ``count`` / ``counters`` / ``reset_counters`` — process-wide integer
+  counters that add only while a profiler is recording, so they cover the
+  traced window and nothing else.
+
+With no profiler recording, a span or a count costs one check.  The
+program's spans and counters:
+
+* ``AlertScorer.__call__`` (``engine/serve.py``): ``serve.batch`` a padded
+  batch, holding ``serve.pad`` (host zero-pad, ``from_numpy``, host cast),
+  ``serve.h2d`` (the copy to the device), ``serve.forward`` (the forward,
+  an enqueue on the card) and ``serve.readback`` (the scores back to the
+  host, under a mesh after gathering every rank's; on the card it waits for
+  the forward); counters ``serve.batches``, ``serve.rows``,
+  ``serve.padded_rows`` (a rank's own, under a mesh) and
+  ``serve.h2d_bytes``.  The stream scorer's batches have ``serve.pad``,
+  ``serve.h2d`` and ``serve.h2d_bytes`` only;
+* the data feed: ``feed.gather`` (``data/dataset.py::iterate_batches``) and
+  ``feed.to_device`` (``engine/steps.py::to_device``);
+* the train step (``engine/steps.py::make_train_step``): ``step.run``,
+  holding ``step.augment``, ``step.forward``, ``step.backward``,
+  ``step.allreduce`` (under a mesh) and ``step.optimizer``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
-import time
-from typing import Callable
 
 import torch
+
+# True while a profiler records on this thread: the one check of the off path
+_recording = torch.autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+_COUNTERS: dict[str, int] = {}
 
 
 @contextlib.contextmanager
 def trace(log_dir: str = "btsbot_torch_trace"):
     """Profile the enclosed code; the Chrome trace lands in
-    ``{log_dir}/trace.json``."""
+    ``{log_dir}/trace.json`` and its counters in ``{log_dir}/counters.json``
+    (reset on entry)."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    reset_counters()
     with profile(activities=activities) as prof:
         yield log_dir
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    with open(os.path.join(log_dir, "counters.json"), "w") as f:
+        json.dump(counters(), f, indent=1, sort_keys=True)
 
 
-@contextlib.contextmanager
 def annotate(name: str):
-    """A named region on the profiler's timeline (and an NVTX range on
-    CUDA)."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+    """A named span on the profiler's timeline while a profiler records;
+    otherwise a shared context that does nothing."""
+    if not _recording():
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
-def time_device_fn(fn: Callable, args: tuple, iters: int = 50,
-                   reps: int = 3) -> float:
-    """Mean seconds per call of ``fn(*args)``, the best of ``reps`` runs of
-    ``iters`` calls after one warm-up call.  The device is the one of the
-    first tensor among ``args`` (the CPU if there is none)."""
-    device = next((a.device for a in args if isinstance(a, torch.Tensor)),
-                  torch.device("cpu"))
-    on_card = device.type == "cuda"
-    fn(*args)
-    best = float("inf")
-    for _ in range(reps):
-        if on_card:
-            torch.cuda.synchronize(device)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(iters):
-                fn(*args)
-            end.record()
-            torch.cuda.synchronize(device)
-            secs = start.elapsed_time(end) / 1e3
-        else:
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                fn(*args)
-            secs = time.perf_counter() - t0
-        best = min(best, secs)
-    return best / iters
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while a profiler records."""
+    if _recording():
+        _COUNTERS[name] = _COUNTERS.get(name, 0) + int(n)
+
+
+def counters() -> dict[str, int]:
+    """A copy of every counter."""
+    return dict(_COUNTERS)
+
+
+def reset_counters() -> None:
+    _COUNTERS.clear()

@@ -1,8 +1,8 @@
 """The port's profiling helpers and its kernel cache switch on the CPU.
 
 ``utils/profiling.py``: ``trace`` writes a Chrome trace that holds an
-``annotate`` region, ``time_device_fn`` times on the host clock for CPU
-tensors.  ``utils/compile_cache.py``: ``enable`` points the kernel build at
+``annotate`` region (``test_torch_tracing.py`` holds the program's spans
+and counters).  ``utils/compile_cache.py``: ``enable`` points the kernel build at
 a directory and ``disable`` points it back, without building anything (no
 ``nvcc`` here).
 """
@@ -25,17 +25,6 @@ def test_trace_writes_a_chrome_trace_with_the_annotated_region(tmp_path):
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "btsbot-region" for e in events)
-
-
-def test_time_device_fn_on_the_cpu():
-    calls = []
-
-    def fn(a, b):
-        calls.append(1)
-        return a + b
-
-    secs = profiling.time_device_fn(fn, (torch.ones(8), torch.ones(8)), iters=4, reps=2)
-    assert secs > 0 and len(calls) == 1 + 4 * 2
 
 
 def test_compile_cache_points_the_build_dir_without_building(tmp_path, monkeypatch):
