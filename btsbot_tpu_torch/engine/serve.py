@@ -19,6 +19,19 @@ the CUDA block kernel, the InceptionNeXt blocks' LN → MLP halves in
 ``fused_ln_mlp``.  Both scorers run on the CUDA card unless
 ``device="cpu"`` is passed, and raise without a card.
 
+On a CUDA card ``AlertScorer`` feeds the card through a ring of two slots
+(``_FeedRing``), built on its first call, each holding a pinned host tensor
+and a card tensor of ``batch_size`` rows an input (a rank's share of them
+under a mesh).  A batch's real rows are
+copied from the caller's arrays into its slot's pinned tensor in chunks of
+``_STAGE_CHUNK_BYTES``, each chunk's copy to the card queued on a copy
+stream as soon as it is staged; the padding is zeroed on the card, so no
+zeros are made on the host or cross to the card.  Events order the reuse of
+a slot, and a batch's scores come back into pinned memory and are read once
+the next batch's forward is queued, so the host stages batch i+1 while the
+card scores batch i.  A call still returns only with all its scores.  On the
+CPU, and in the stream scorer, ``_padded_on`` pads on the host.
+
 ``AlertScorer(mesh=)`` (JAX serve.py:29-50, 89-118) serves over a
 (data, model) mesh (parallel.mesh): every rank passes the same host
 arrays, scores its rows of each padded batch with the big weights sharded
@@ -107,9 +120,11 @@ def load_model(config, weights: Mapping, dtype, device):
 
 def _padded_on(rows: np.ndarray, bs: int, device,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """rows zero-padded to bs rows, on ``device`` in ``dtype``.  A narrower
+    """rows zero-padded to bs rows on the host, then on ``device`` in
+    ``dtype``: the padding crosses too, from pageable memory.  A narrower
     type (bfloat16) is cast on the host, round to nearest even, so only its
-    bytes cross to the card."""
+    bytes cross to the card.  The stream scorer's feed, and ``AlertScorer``'s
+    on the CPU; ``AlertScorer`` on a CUDA card feeds through ``_FeedRing``."""
     with annotate("serve.pad"):
         if len(rows) == bs:
             out = np.ascontiguousarray(rows, dtype=np.float32)
@@ -124,11 +139,92 @@ def _padded_on(rows: np.ndarray, bs: int, device,
         return host.to(device)
 
 
+# bytes of an input staged into pinned memory before their copy to the card is
+# queued: the copy engine moves one chunk while the host stages the next
+_STAGE_CHUNK_BYTES = 32 << 20
+
+
+def _feed_plan(n: int, take: slice, row_bytes: int,
+               chunk_bytes: int = _STAGE_CHUNK_BYTES) -> tuple[list[slice], slice]:
+    """How one input of a batch of ``n`` real rows crosses to the card, where
+    ``take`` is this rank's slice of the padded batch (all of it without a
+    mesh): the chunks of this rank's real rows to stage and copy, each at
+    most ``chunk_bytes`` (and at least one row), and the rows of its padded
+    share that the card zeroes."""
+    real = len(range(n)[take])
+    step = max(1, chunk_bytes // row_bytes)
+    chunks = [slice(lo, min(lo + step, real)) for lo in range(0, real, step)]
+    return chunks, slice(real, take.stop - take.start)
+
+
+class _FeedSlot:
+    """One slot of the feed ring: per input a pinned host tensor and a card
+    tensor of ``rows`` rows, a pinned buffer for a batch's scores, and the
+    events that order their reuse."""
+
+    def __init__(self, row_shapes, rows: int, batch_size: int, device):
+        self.host = [None if s is None else torch.empty((rows,) + s, pin_memory=True)
+                     for s in row_shapes]
+        self.dev = [None if s is None else torch.empty((rows,) + s, device=device)
+                    for s in row_shapes]
+        self.scores = torch.empty(batch_size, pin_memory=True)
+        self.copied = torch.cuda.Event()    # copy stream: the inputs are on the card
+        self.consumed = torch.cuda.Event()  # compute stream: the forward has read them
+        self.scored = torch.cuda.Event()    # compute stream: the scores are on the host
+
+    def read_back(self, out: np.ndarray, start: int, stop: int) -> None:
+        """Wait for this slot's scores and write them to ``out[start:stop]``."""
+        with annotate("serve.readback"):
+            self.scored.synchronize()
+            out[start:stop] = self.scores[:stop - start].numpy()
+
+
+class _FeedRing:
+    """``AlertScorer``'s host → card feed on a CUDA card: two slots and one
+    copy stream.  A batch's real rows are staged into its slot's pinned
+    tensors chunk by chunk, each chunk's copy queued on the copy stream as
+    soon as it is staged, and the padding is zeroed on the card."""
+
+    def __init__(self, row_shapes, rows: int, batch_size: int, device):
+        self.stream = torch.cuda.Stream(device)
+        self.slots = [_FeedSlot(row_shapes, rows, batch_size, device) for _ in range(2)]
+
+    def stage(self, slot: _FeedSlot, inputs, start: int, stop: int,
+              take: slice) -> list[torch.Tensor | None]:
+        """Queue the copy of rows ``[start:stop][take]`` of each input into
+        ``slot`` and the zeroing of the rest of its padded rows; returns the
+        padded card tensors, ready once ``slot.copied`` has passed."""
+        if not slot.copied.query():  # the copy engine may still read its pinned rows
+            count("serve.ring_waits")
+            slot.copied.synchronize()
+        self.stream.wait_event(slot.consumed)  # the last forward has read its card rows
+        feed = []
+        for rows, host, dev in zip(inputs, slot.host, slot.dev):
+            if rows is None:
+                feed.append(None)
+                continue
+            src = rows[start:stop][take]
+            chunks, tail = _feed_plan(stop - start, take, host[0].nbytes)
+            for c in chunks:
+                with annotate("serve.pad"):
+                    host[c].copy_(torch.from_numpy(np.asarray(src[c])))
+                with annotate("serve.h2d"), torch.cuda.stream(self.stream):
+                    dev[c].copy_(host[c], non_blocking=True)
+            count("serve.h2d_bytes", tail.start * host[0].nbytes)
+            if tail.start < tail.stop:
+                with annotate("serve.h2d"), torch.cuda.stream(self.stream):
+                    dev[tail].zero_()
+            feed.append(dev[:tail.stop])
+        slot.copied.record(self.stream)
+        return feed
+
+
 class AlertScorer:
     """Fixed-batch scorer: pads the tail, returns scores in input order.
 
     normalize=True applies the per-cutout L2 norm on the card (for raw cutout
-    stacks); leave False for pre-normalised training data."""
+    stacks); leave False for pre-normalised training data.  One call at a
+    time: on a CUDA card every call feeds through the scorer's one ring."""
 
     def __init__(self, config, weights: Mapping, batch_size: int = 3072,
                  dtype=torch.bfloat16, normalize: bool = False, bucket_sizes=None,
@@ -147,6 +243,7 @@ class AlertScorer:
         self.normalize = normalize
         self.mesh = mesh
         self.model = shard_module(load_model(self.config, weights, dtype, self.device), mesh)
+        self._ring: _FeedRing | None = None  # built on the first call on a CUDA card
 
     @torch.inference_mode()
     def _score(self, images: torch.Tensor | None,
@@ -173,28 +270,80 @@ class AlertScorer:
         metadata = metadata if self.config.need_metadata else None
         n = len(triplets) if triplets is not None else len(metadata)
         out = np.empty(n, np.float32)
+        if self.device.type != "cuda":
+            self._call_padded((triplets, metadata), out)
+        elif n:
+            self._call_staged((triplets, metadata), out)
+        return out
+
+    def _call_padded(self, inputs, out: np.ndarray) -> None:
+        """``__call__`` off a CUDA card: each batch padded on the host
+        (``_padded_on``), copied, scored and read back in turn."""
+        for start, stop, take in self._batches(len(out)):
+            with annotate("serve.batch"):
+                self._count_batch(stop - start, take)
+                feed = [None if rows is None else
+                        _padded_on(rows[start:stop][take], take.stop - take.start,
+                                   self.device)
+                        for rows in inputs]
+                with annotate("serve.forward"):
+                    scores = self._score(*feed)
+                with annotate("serve.readback"):
+                    out[start:stop] = self._gathered(scores)[:stop - start].cpu().numpy()
+
+    @torch.inference_mode()
+    def _call_staged(self, inputs, out: np.ndarray) -> None:
+        """``__call__`` on a CUDA card, through the feed ring: batch i+1 is
+        staged while the card scores batch i, whose scores are read back once
+        batch i+1's forward is queued (the last batch's before returning)."""
+        if self._ring is None:
+            top = next(self._batches(self.batch_size))[2]
+            row_shapes = [None if x is None else tuple(np.shape(x)[1:]) for x in inputs]
+            self._ring = _FeedRing(row_shapes, top.stop - top.start, self.batch_size,
+                                   self.device)
+        compute = torch.cuda.current_stream(self.device)
+        last = None
+        for i, (start, stop, take) in enumerate(self._batches(len(out))):
+            slot = self._ring.slots[i % len(self._ring.slots)]
+            with annotate("serve.batch"):
+                self._count_batch(stop - start, take)
+                count("serve.staged_batches")
+                feed = self._ring.stage(slot, inputs, start, stop, take)
+                with annotate("serve.forward"):
+                    compute.wait_event(slot.copied)
+                    scores = self._score(*feed)
+                    slot.consumed.record(compute)
+                    slot.scores[:stop - start].copy_(
+                        self._gathered(scores)[:stop - start], non_blocking=True)
+                    slot.scored.record(compute)
+                if last is not None:
+                    last[0].read_back(out, *last[1:])
+                last = (slot, start, stop)
+                if stop == len(out):
+                    slot.read_back(out, start, stop)
+
+    def _batches(self, n: int):
+        """(start, stop, take) of each padded batch of a call of ``n``
+        alerts: its rows of the call, and this rank's rows of the padded
+        batch (all of them without a mesh)."""
         share = None if self.mesh is None else batch_sharding(self.mesh)
         for start in range(0, n, self.batch_size):
             stop = min(start + self.batch_size, n)
             bs = _pick_bucket(self.bucket_sizes, stop - start)
-            # under a mesh, this rank's rows of the padded batch
-            take = slice(0, bs) if share is None else share.rows(bs)
-            with annotate("serve.batch"):
-                count("serve.batches")
-                count("serve.rows", len(range(stop - start)[take]))
-                count("serve.padded_rows", take.stop - take.start)
-                inputs = [None if rows is None else
-                          _padded_on(rows[start:stop][take], take.stop - take.start,
-                                     self.device)
-                          for rows in (triplets, metadata)]
-                with annotate("serve.forward"):
-                    scores = self._score(*inputs)
-                with annotate("serve.readback"):
-                    if share is not None:  # every rank's scores, in order
-                        scores = all_gather_rows(scores, self.mesh.data_group,
-                                                 self.mesh.shape["data"])
-                    out[start:stop] = scores[:stop - start].cpu().numpy()
-        return out
+            yield start, stop, slice(0, bs) if share is None else share.rows(bs)
+
+    @staticmethod
+    def _count_batch(n: int, take: slice) -> None:
+        count("serve.batches")
+        count("serve.rows", len(range(n)[take]))
+        count("serve.padded_rows", take.stop - take.start)
+
+    def _gathered(self, scores: torch.Tensor) -> torch.Tensor:
+        """Every rank's scores of the padded batch, in order (this rank's
+        without a mesh)."""
+        if self.mesh is None:
+            return scores
+        return all_gather_rows(scores, self.mesh.data_group, self.mesh.shape["data"])
 
     def throughput(self, iters: int = 20) -> float:
         """alerts/s of the forward on device-resident random inputs at

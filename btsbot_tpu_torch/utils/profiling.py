@@ -21,7 +21,18 @@ program's spans and counters:
   host, under a mesh after gathering every rank's; on the card it waits for
   the forward); counters ``serve.batches``, ``serve.rows``,
   ``serve.padded_rows`` (a rank's own, under a mesh) and
-  ``serve.h2d_bytes``.  The stream scorer's batches have ``serve.pad``,
+  ``serve.h2d_bytes``.  On a CUDA card the batch is fed through the pinned
+  ring: ``serve.pad`` is the host copy of one chunk of real rows into pinned
+  memory (several an input), ``serve.h2d`` the queueing of that chunk's copy
+  on the copy stream, or of the padding's zeroing on the card;
+  ``serve.forward`` also queues the gather (under a mesh) and the scores'
+  copy to the host; ``serve.readback`` waits for that copy, and for all but
+  a call's last batch falls in the next batch's ``serve.batch``, after its
+  ``serve.forward``; ``serve.h2d_bytes`` counts the real rows only, the
+  bytes that cross.  Two more counters there: ``serve.staged_batches``
+  (batches fed through the ring; ÷ ``serve.batches`` is its engagement) and
+  ``serve.ring_waits`` (times the host waited for a slot's earlier copy
+  before staging into it).  The stream scorer's batches have ``serve.pad``,
   ``serve.h2d`` and ``serve.h2d_bytes`` only;
 * the data feed: ``feed.gather`` (``data/dataset.py::iterate_batches``) and
   ``feed.to_device`` (``engine/steps.py::to_device``);
