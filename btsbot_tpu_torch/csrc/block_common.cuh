@@ -19,6 +19,8 @@
 
 namespace btsbot {
 
+// The ConvNeXt LayerNorm's eps, which the block kernels use (tf32x3.cu's and
+// hopper_mlp.cuh's LN -> MLP take theirs as an argument: MaxViT's is 1e-5).
 constexpr float kLnEps = 1e-6f;
 constexpr int kTaps = 49;  // 7 x 7
 

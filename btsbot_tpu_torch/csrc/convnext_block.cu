@@ -244,7 +244,8 @@ __global__ void __maxnreg__((Plan<CP, ANY>::MAX_REGS))
 #pragma unroll
           for (int e = 0; e < 8; ++e) v[i][vv][e] += bv[e];
         }
-        layer_norm_to_xn<P>(v[i], lw, lb, xn, grp + (i0 + i) * P::GROUPS, l, c);
+        layer_norm_to_xn<P>(v[i], lw, lb, xn, grp + (i0 + i) * P::GROUPS, l, c,
+                            kLnEps);
       }
     }
     fence_proxy_async();  // Xn was written by ordinary stores, wgmma reads it

@@ -333,12 +333,14 @@ template <class P> __device__ __forceinline__ bool real_vec(int vv, int l, int c
 // l of the group holds channels 8 (vv LPP + l) .. + 8 in v[vv]; vectors past
 // c hold zeros); the result goes to Xn as bf16 in the swizzled slab layout,
 // and the padded channels c .. CP as zeros.  lw / lb are this lane's LN
-// scale and shift, packed.  Mean and variance are over the c real channels.
+// scale and shift, packed.  Mean and variance are over the c real channels;
+// eps is the LayerNorm's (kLnEps in the ConvNeXt block).
 template <class P>
 __device__ __forceinline__ void layer_norm_to_xn(const float (&v)[P::VEC][8],
                                                  const uint4 (&lw)[P::VEC],
                                                  const uint4 (&lb)[P::VEC],
-                                                 unsigned char* xn, int r, int l, int c) {
+                                                 unsigned char* xn, int r, int l, int c,
+                                                 float eps) {
   float s = 0.f;
 #pragma unroll
   for (int vv = 0; vv < P::VEC; ++vv)
@@ -356,7 +358,7 @@ __device__ __forceinline__ void layer_norm_to_xn(const float (&v)[P::VEC][8],
       ss += d * d;
     }
   }
-  const float rstd = rsqrtf(group_sum<P::LPP>(ss) * inv_c + kLnEps);
+  const float rstd = rsqrtf(group_sum<P::LPP>(ss) * inv_c + eps);
 #pragma unroll
   for (int vv = 0; vv < P::VEC; ++vv) {
     const int cg = vv * P::LPP + l;  // 16-byte group along the row

@@ -60,7 +60,7 @@ __global__ void __maxnreg__((Plan<CP, ANY>::MAX_REGS))
                        const bf16* __restrict__ ln_b, const bf16* __restrict__ b1,
                        const bf16* __restrict__ b2, const bf16* __restrict__ gamma,
                        bf16* __restrict__ out, long long M, int hidden, int stages,
-                       int c_real) {
+                       int c_real, float eps) {
   using P = Plan<CP, ANY>;
   const int c = ANY ? c_real : CP;
   extern __shared__ unsigned char smem_raw[];
@@ -104,7 +104,7 @@ __global__ void __maxnreg__((Plan<CP, ANY>::MAX_REGS))
         float v[P::VEC][8];
 #pragma unroll
         for (int vv = 0; vv < P::VEC; ++vv) unpack8(hq[i][vv], v[vv]);
-        layer_norm_to_xn<P>(v, lw, lb, xn, grp + (i0 + i) * P::GROUPS, l, c);
+        layer_norm_to_xn<P>(v, lw, lb, xn, grp + (i0 + i) * P::GROUPS, l, c, eps);
       }
     }
     fence_proxy_async();  // Xn was written by ordinary stores, wgmma reads it
@@ -118,7 +118,7 @@ template <int CP, bool ANY>
 static cudaError_t launch_ln_mlp_bf16(const void* h, const void* res, const void* ln_w,
                                       const void* ln_b, const void* w1, const void* b1,
                                       const void* w2, const void* b2, const void* gamma,
-                                      void* out, long long M, int c, int hidden,
+                                      void* out, long long M, int c, int hidden, float eps,
                                       cudaStream_t stream) {
   using P = Plan<CP, ANY>;
   constexpr int kStages = stages_that_fit(P::SMEM_LIMIT, P::XN_BYTES, 0);
@@ -143,7 +143,7 @@ static cudaError_t launch_ln_mlp_bf16(const void* h, const void* res, const void
       map1, map2, static_cast<const bf16*>(h), static_cast<const bf16*>(res),
       static_cast<const bf16*>(ln_w), static_cast<const bf16*>(ln_b),
       static_cast<const bf16*>(b1), static_cast<const bf16*>(b2),
-      static_cast<const bf16*>(gamma), static_cast<bf16*>(out), M, hidden, kStages, c);
+      static_cast<const bf16*>(gamma), static_cast<bf16*>(out), M, hidden, kStages, c, eps);
   return cudaGetLastError();
 }
 
@@ -152,11 +152,11 @@ static cudaError_t launch_ln_mlp_bf16(const void* h, const void* res, const void
 static cudaError_t dispatch_ln_mlp_bf16(const void* h, const void* res, const void* ln_w,
                                         const void* ln_b, const void* w1, const void* b1,
                                         const void* w2, const void* b2, const void* gamma,
-                                        void* out, long long M, int C, int hidden, bool any,
-                                        cudaStream_t stream) {
+                                        void* out, long long M, int C, int hidden, float eps,
+                                        bool any, cudaStream_t stream) {
 #define BTS_LAUNCH(CP, ANY)                                                                \
   return launch_ln_mlp_bf16<CP, ANY>(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, C, \
-                                     hidden, stream);
+                                     hidden, eps, stream);
   if (!any) {
     switch (C) {
       case 64: BTS_LAUNCH(64, false)
@@ -180,17 +180,18 @@ static cudaError_t dispatch_ln_mlp_bf16(const void* h, const void* res, const vo
 }  // namespace btsbot
 
 // All tensors contiguous on one card, bfloat16 (float32 runs
-// btsbot_ln_mlp_tf32x3).  is_bf16 must be 1: a guard that keeps the earlier
+// btsbot_ln_mlp_tf32x3); eps is the LayerNorm's (1e-6 in ConvNeXt and
+// InceptionNeXt blocks, 1e-5 in MaxViT's).  is_bf16 must be 1: a guard that keeps the earlier
 // signature, in which it chose the type, and refuses a float32 caller of it.  Launches on `stream`, does not synchronise,
 // and returns cudaGetLastError() after the launch (0 on success).
 extern "C" int btsbot_ln_mlp(const void* h, const void* res, const void* ln_w,
                              const void* ln_b, const void* w1, const void* b1,
                              const void* w2, const void* b2, const void* gamma,
-                             void* out, long long M, int C, int hidden, int is_bf16,
-                             void* stream) {
+                             void* out, long long M, int C, int hidden, float eps,
+                             int is_bf16, void* stream) {
   if (!is_bf16) return cudaErrorInvalidValue;
   return btsbot::hopper::dispatch_ln_mlp_bf16(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out,
-                                              M, C, hidden, false,
+                                              M, C, hidden, eps, false,
                                               static_cast<cudaStream_t>(stream));
 }
 
@@ -199,10 +200,10 @@ extern "C" int btsbot_ln_mlp(const void* h, const void* res, const void* ln_w,
 extern "C" int btsbot_ln_mlp_wgmma(const void* h, const void* res, const void* ln_w,
                                    const void* ln_b, const void* w1, const void* b1,
                                    const void* w2, const void* b2, const void* gamma,
-                                   void* out, long long M, int C, int hidden, int is_bf16,
-                                   void* stream) {
+                                   void* out, long long M, int C, int hidden, float eps,
+                                   int is_bf16, void* stream) {
   if (!is_bf16) return cudaErrorInvalidValue;
   return btsbot::hopper::dispatch_ln_mlp_bf16(h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out,
-                                              M, C, hidden, true,
+                                              M, C, hidden, eps, true,
                                               static_cast<cudaStream_t>(stream));
 }

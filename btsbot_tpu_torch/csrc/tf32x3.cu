@@ -403,6 +403,7 @@ struct Args {
   int c, hidden, hp, kp, tm, stages, tile_floats, taps_floats;
   int splits, cps;
   int H, W;            // block: the map (0 for ln_mlp)
+  float eps;           // the LayerNorm's eps
 };
 
 struct SlotRing {
@@ -464,16 +465,16 @@ __device__ __forceinline__ void produce(SlotRing ring, const Args& a, int col0, 
 
 // LayerNorm of the tile's rows into Xn: row r (c floats at src + r pitch,
 // shared or device memory) -> Xn row r (KP floats, zeros past c); rows
-// r >= valid (past M) -> zeros.  Mean, mean of squared deviations, eps
-// 1e-6, over the c real channels.  Warp w takes rows w, w + 8, ...; a lane
+// r >= valid (past M) -> zeros.  Mean, mean of squared deviations, eps,
+// over the c real channels.  Warp w takes rows w, w + 8, ...; a lane
 // holds Q float4 groups of a row (KP <= 128 Q) and 8 / Q rows' loads are in
 // flight together, so the rows do not wait on each other's latency.
 template <int Q>
 __device__ __forceinline__ void layer_norm_rows(const float* src, int pitch, long long valid,
                                                 float* xn, int xp, int tm, int c, int kp,
                                                 const float* __restrict__ ln_w,
-                                                const float* __restrict__ ln_b, int warp,
-                                                int lane) {
+                                                const float* __restrict__ ln_b, float eps,
+                                                int warp, int lane) {
   constexpr int R = 8 / Q;
   const float inv_c = 1.0f / c;
   for (int rb = warp; rb < tm; rb += 8 * R) {
@@ -503,7 +504,7 @@ __device__ __forceinline__ void layer_norm_rows(const float* src, int pitch, lon
         const float dz = v[i][q].z - mu, dw = v[i][q].w - mu;
         ss += (dx * dx + dy * dy) + (dz * dz + dw * dw);
       }
-      const float rstd = rsqrtf(warp_sum(ss) * inv_c + kLnEps);
+      const float rstd = rsqrtf(warp_sum(ss) * inv_c + eps);
 #pragma unroll
       for (int q = 0; q < Q; ++q) {
         const int k = 4 * (lane + 32 * q);
@@ -526,13 +527,17 @@ __device__ __forceinline__ void layer_norm_tile(const float* src, int pitch, lon
                                                 float* xn, const Args& a) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, xp = a.kp + 4;
   if (a.kp <= 128)
-    layer_norm_rows<1>(src, pitch, valid, xn, xp, a.tm, a.c, a.kp, a.ln_w, a.ln_b, warp, lane);
+    layer_norm_rows<1>(src, pitch, valid, xn, xp, a.tm, a.c, a.kp, a.ln_w, a.ln_b, a.eps, warp,
+                            lane);
   else if (a.kp <= 256)
-    layer_norm_rows<2>(src, pitch, valid, xn, xp, a.tm, a.c, a.kp, a.ln_w, a.ln_b, warp, lane);
+    layer_norm_rows<2>(src, pitch, valid, xn, xp, a.tm, a.c, a.kp, a.ln_w, a.ln_b, a.eps, warp,
+                            lane);
   else if (a.kp <= 512)
-    layer_norm_rows<4>(src, pitch, valid, xn, xp, a.tm, a.c, a.kp, a.ln_w, a.ln_b, warp, lane);
+    layer_norm_rows<4>(src, pitch, valid, xn, xp, a.tm, a.c, a.kp, a.ln_w, a.ln_b, a.eps, warp,
+                            lane);
   else
-    layer_norm_rows<8>(src, pitch, valid, xn, xp, a.tm, a.c, a.kp, a.ln_w, a.ln_b, warp, lane);
+    layer_norm_rows<8>(src, pitch, valid, xn, xp, a.tm, a.c, a.kp, a.ln_w, a.ln_b, a.eps, warp,
+                            lane);
 }
 
 // The consumers, once Xn is complete: both products over every hidden
@@ -831,7 +836,7 @@ static cudaError_t run(const void* src, const void* res, const void* dw_w, const
                        const void* ln_w, const void* ln_b, const void* w1, const void* b1,
                        const void* w2, const void* b2, const void* gamma, void* out, void* ws,
                        long long ws_bytes, long long M, int H, int W, int C, int hidden,
-                       cudaStream_t stream) {
+                       float eps, cudaStream_t stream) {
   if (M <= 0) return cudaSuccess;
   const bool block = dw_w != nullptr;
   Plan32 p;
@@ -882,6 +887,7 @@ static cudaError_t run(const void* src, const void* res, const void* dw_w, const
   a.cps = p.cps;
   a.H = block ? H : 0;
   a.W = block ? W : 0;
+  a.eps = eps;
   err = block ? launch_nb<true>(p, a, stream) : launch_nb<false>(p, a, stream);
   if (err != cudaSuccess || p.splits == 1) return err;
   const long long n = M * C;
@@ -896,14 +902,15 @@ static cudaError_t run(const void* src, const void* res, const void* dw_w, const
 
 // As btsbot_ln_mlp (ln_mlp.cu) in float32, at any C up to 1024 and any hidden width, both multiples of 8.  ws: a float workspace
 // of btsbot_tf32x3_workspace_floats(M, C, hidden, 0) floats (ws_bytes says
-// how many bytes it holds), written by the launch.
+// how many bytes it holds), written by the launch; eps the LayerNorm's.
 extern "C" int btsbot_ln_mlp_tf32x3(const void* h, const void* res, const void* ln_w,
                                     const void* ln_b, const void* w1, const void* b1,
                                     const void* w2, const void* b2, const void* gamma,
                                     void* out, void* ws, long long ws_bytes, long long M, int C,
-                                    int hidden, void* stream) {
+                                    int hidden, float eps, void* stream) {
   return btsbot::tf32x3::run(h, res, nullptr, nullptr, ln_w, ln_b, w1, b1, w2, b2, gamma, out,
-                             ws, ws_bytes, M, 0, 0, C, hidden, static_cast<cudaStream_t>(stream));
+                             ws, ws_bytes, M, 0, 0, C, hidden, eps,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // As btsbot_convnext_block (convnext_block.cu) in float32, at any C up to 1024 and any hidden width, both multiples of 8; ws as
@@ -917,7 +924,8 @@ extern "C" int btsbot_convnext_block_tf32x3(const void* x, const void* dw_w, con
                                             int hidden, void* stream) {
   const long long M = static_cast<long long>(B) * H * W;
   return btsbot::tf32x3::run(x, x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, out, ws,
-                             ws_bytes, M, H, W, C, hidden, static_cast<cudaStream_t>(stream));
+                             ws_bytes, M, H, W, C, hidden, btsbot::kLnEps,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // Floats of the workspace a launch over M rows at widths C and hidden needs

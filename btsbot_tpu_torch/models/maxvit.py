@@ -18,14 +18,26 @@ input size / 32 (7 at 224).  The stem is Conv 3×3/2 (no bias) → BatchNorm →
 GELU → Conv 3×3.  The models resize the 63×63 triplets to the backbone's
 native size first (``ops.resize``) and pool the final map with no norm.
 
+An attention block runs on the map in its natural NHWC order: LN1, ``qkv``
+and ``proj`` act on each token alone, so only the attention core needs the
+partitions, and ``ops.partition_attention`` gathers them by index inside
+its kernel (``csrc/partition_attention.cu``; on the CPU the plain
+partition → attention → reverse).  The MLP half, x + fc2(GELU(fc1(LN2(x)))),
+is ``ops.ln_mlp.fused_ln_mlp`` with γ = 1 and eps 1e-5 (``csrc/ln_mlp.cu``
+in bfloat16, ``csrc/tf32x3.cu`` in float32).  So a forward launches two
+kernels a block, 22 at maxvit_tiny's depths, and no partition copy.  The
+stem, the MBConvs (cuDNN depthwise convs, cuBLAS 1×1 products), LN1, qkv,
+proj and the heads are PyTorch's.  Spans ``maxvit.mbconv`` and
+``maxvit.attention`` cover each block's two halves while a profiler records.
+
 Rounding points are the JAX package's: GELU erf in float32 and tanh in
 bfloat16 (``models.common.gelu``); attention scores accumulated in float32
 (q·scale in the compute type, both operands widened), the bias table
 gathered and cast to the compute type and added in float32, softmax in
-float32 then cast back; BatchNorm in float32 inside.  The products are
-``torch.matmul`` / cuBLAS and the convs cuDNN: the JAX package runs no
-Pallas kernel in MaxViT, so neither does the port, and ``plain`` (taken
-for the other models' signature) changes nothing here.
+float32 then cast back; BatchNorm in float32 inside; the MLP half's as
+``ln_mlp_reference`` rounds (each product in the compute type before its
+bias).  ``plain`` (taken for the other models' signature) changes nothing
+here: the CPU runs the plain versions, the card the kernels.
 
 Module and parameter names are the reference's (timm maxxvit under
 ``maxvit.`` / ``maxvit_backbone.``), so the JAX exporter's state dicts and
@@ -38,12 +50,22 @@ from __future__ import annotations
 import re
 from typing import Sequence
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.ln_mlp import fused_ln_mlp
+from ..ops.partition_attention import (  # noqa: F401 — re-exported for callers of the model
+    HEAD_DIM,
+    grid_partition,
+    grid_reverse,
+    partition_attention,
+    window_partition,
+    window_reverse,
+)
+from ..ops.partition_attention import rel_position_index as _rel_position_index  # noqa: F401
 from ..ops.resize import resize_bilinear
+from ..utils.profiling import annotate
 from .common import (
     BatchNorm2d,
     CombinedHead,
@@ -66,7 +88,7 @@ MAXVIT_CONFIGS: dict[str, dict] = {
                     "stem_width": 64},
 }
 DEFAULT_KIND = "maxvit_tiny_rw_224.sw_in1k"
-HEAD_DIM = 32
+LN_EPS = 1e-5
 
 
 def maxvit_spec(model_kind: str) -> dict:
@@ -90,42 +112,6 @@ def get_model_image_size(model_kind: str) -> int:
 def maxvit_window(model_kind: str) -> int:
     """Partition size: the native resolution / 32 (the final map's side)."""
     return max(1, get_model_image_size(model_kind) // 32)
-
-
-def _rel_position_index(win: int) -> np.ndarray:
-    """Swin-style (win², win²) index into a (2·win−1)² bias table."""
-    coords = np.stack(np.meshgrid(np.arange(win), np.arange(win), indexing="ij"))
-    coords = coords.reshape(2, -1)                          # (2, w²)
-    rel = coords[:, :, None] - coords[:, None, :]           # (2, w², w²)
-    rel = rel.transpose(1, 2, 0) + (win - 1)                # shift to ≥0
-    return (rel[..., 0] * (2 * win - 1) + rel[..., 1]).astype(np.int32)
-
-
-def window_partition(x: torch.Tensor, win: int) -> torch.Tensor:
-    """(B, H, W, C) → (B·H/w·W/w, w², C): non-overlapping windows."""
-    b, h, w, c = x.shape
-    x = x.reshape(b, h // win, win, w // win, win, c)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, win * win, c)
-
-
-def window_reverse(x: torch.Tensor, win: int, h: int, w: int) -> torch.Tensor:
-    c = x.shape[-1]
-    x = x.reshape(-1, h // win, w // win, win, win, c)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, h, w, c)
-
-
-def grid_partition(x: torch.Tensor, grid: int) -> torch.Tensor:
-    """(B, H, W, C) → (B·H/g·W/g, g², C): dilated g×g grids (tokens strided
-    by H/g, W/g across the whole map)."""
-    b, h, w, c = x.shape
-    x = x.reshape(b, grid, h // grid, grid, w // grid, c)
-    return x.permute(0, 2, 4, 1, 3, 5).reshape(-1, grid * grid, c)
-
-
-def grid_reverse(x: torch.Tensor, grid: int, h: int, w: int) -> torch.Tensor:
-    c = x.shape[-1]
-    x = x.reshape(-1, h // grid, w // grid, grid, grid, c)
-    return x.permute(0, 3, 1, 4, 2, 5).reshape(-1, h, w, c)
 
 
 class ConvNHWC(Conv2d):
@@ -203,52 +189,40 @@ class MBConv(nn.Module):
 
 
 class RelPos(nn.Module):
-    """The (2w−1)² × heads bias table and its swin index (not saved)."""
+    """The (2w−1)² × heads bias table (its swin index is
+    ``ops.partition_attention.rel_position_index``)."""
 
     def __init__(self, window: int, num_heads: int):
         super().__init__()
         self.relative_position_bias_table = nn.Parameter(
             nn.init.trunc_normal_(torch.empty((2 * window - 1) ** 2, num_heads), std=0.02))
-        index = torch.from_numpy(_rel_position_index(window).astype(np.int64))
-        self.register_buffer("index", index.reshape(-1), persistent=False)
-
-    def forward(self, n: int, dtype: torch.dtype) -> torch.Tensor:
-        """(heads, n, n) bias in ``dtype``."""
-        bias = self.relative_position_bias_table[self.index].reshape(n, n, -1)
-        return bias.permute(2, 0, 1).to(dtype)
 
 
 class RelPosAttention(nn.Module):
-    """Multi-head self-attention with relative position bias over
-    (B·partitions, w², C) tokens."""
+    """Multi-head self-attention with relative position bias over the P×P
+    windows (``grid=False``) or grids of an NHWC map, in its natural order:
+    qkv → ``partition_attention`` → proj."""
 
-    def __init__(self, dim: int, window: int):
+    def __init__(self, dim: int, window: int, grid: bool):
         super().__init__()
-        self.num_heads = dim // HEAD_DIM
+        self.window, self.grid = window, grid
         self.qkv = Linear(dim, 3 * dim)
         self.proj = Linear(dim, dim)
-        self.rel_pos = RelPos(window, self.num_heads)
+        self.rel_pos = RelPos(window, dim // HEAD_DIM)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bn, n, c = x.shape
-        qkv = self.qkv(x).reshape(bn, n, 3, self.num_heads, HEAD_DIM)
-        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)   # (bn, heads, n, d)
-        q = q * HEAD_DIM ** -0.5
-        attn = torch.matmul(q.float(), k.float().transpose(-2, -1))
-        attn = attn + self.rel_pos(n, x.dtype)
-        attn = torch.softmax(attn, dim=-1).to(x.dtype)
-        out = torch.matmul(attn, v).transpose(1, 2).reshape(bn, n, c)
+        out = partition_attention(self.qkv(x), self.rel_pos.relative_position_bias_table,
+                                  self.window, self.grid)
         return self.proj(out)
 
 
 class TransformerMlp(nn.Module):
+    """fc1 / fc2 of the MLP half (run by ``fused_ln_mlp``)."""
+
     def __init__(self, dim: int, expand: int = 4):
         super().__init__()
         self.fc1 = Linear(dim, expand * dim)
         self.fc2 = Linear(expand * dim, dim)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(gelu(self.fc1(x)))
 
 
 class PartitionAttention(nn.Module):
@@ -258,19 +232,20 @@ class PartitionAttention(nn.Module):
     def __init__(self, dim: int, window: int, grid: bool):
         super().__init__()
         self.window = window
-        self.partition, self.reverse = ((grid_partition, grid_reverse) if grid
-                                        else (window_partition, window_reverse))
-        self.norm1 = LayerNorm(dim, eps=1e-5)
-        self.attn = RelPosAttention(dim, window)
-        self.norm2 = LayerNorm(dim, eps=1e-5)
+        self.norm1 = LayerNorm(dim, eps=LN_EPS)
+        self.attn = RelPosAttention(dim, window, grid)
+        self.norm2 = LayerNorm(dim, eps=LN_EPS)
         self.mlp = TransformerMlp(dim)
+        self.register_buffer("ones", torch.ones(dim), persistent=False)  # the MLP's γ
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _, h, w, _ = x.shape
-        t = self.partition(x, self.window)
-        t = t + self.attn(self.norm1(t))
-        t = t + self.mlp(self.norm2(t))
-        return self.reverse(t, self.window, h, w)
+        b, h, w, c = x.shape
+        x = x + self.attn(self.norm1(x))
+        rows = x.reshape(-1, c)
+        out = fused_ln_mlp(rows, rows, self.norm2.weight, self.norm2.bias,
+                           self.mlp.fc1.weight, self.mlp.fc1.bias, self.mlp.fc2.weight,
+                           self.mlp.fc2.bias, self.ones, eps=LN_EPS)
+        return out.reshape(b, h, w, c)
 
 
 class MaxViTBlock(nn.Module):
@@ -281,7 +256,10 @@ class MaxViTBlock(nn.Module):
         self.attn_grid = PartitionAttention(dim, window, grid=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.attn_grid(self.attn_block(self.conv(x)))
+        with annotate("maxvit.mbconv"):
+            x = self.conv(x)
+        with annotate("maxvit.attention"):
+            return self.attn_grid(self.attn_block(x))
 
 
 class MaxViTStage(nn.Module):

@@ -38,22 +38,22 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    # h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, C, hidden, is_bf16,
-    # stream
+    # h, res, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, C, hidden, LN eps,
+    # is_bf16, stream
     "btsbot_ln_mlp": [_P] * 10 + [ctypes.c_longlong, ctypes.c_int,
-                                  ctypes.c_int, ctypes.c_int, _P],
+                                  ctypes.c_int, ctypes.c_float, ctypes.c_int, _P],
     # x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, out, B, H, W, C,
     # hidden, is_bf16, stream
     "btsbot_convnext_block": [_P] * 11 + [ctypes.c_int] * 6 + [_P],
     # the same two functions in bfloat16 on the tensor cores at any width
     # (convnext_block.cu, ln_mlp.cu)
     "btsbot_ln_mlp_wgmma": [_P] * 10 + [ctypes.c_longlong, ctypes.c_int,
-                                        ctypes.c_int, ctypes.c_int, _P],
+                                        ctypes.c_int, ctypes.c_float, ctypes.c_int, _P],
     "btsbot_convnext_block_wgmma": [_P] * 11 + [ctypes.c_int] * 6 + [_P],
     # float32 at every width, three TF32 products (csrc/tf32x3.cu): the same
     # arguments with a workspace (pointer, bytes) after out, and no is_bf16
     "btsbot_ln_mlp_tf32x3": [_P] * 11 + [ctypes.c_longlong, ctypes.c_longlong,
-                                         ctypes.c_int, ctypes.c_int, _P],
+                                         ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
     "btsbot_convnext_block_tf32x3": [_P] * 12 + [ctypes.c_longlong]
     + [ctypes.c_int] * 5 + [_P],
     # M, C, hidden, taps -> floats of the workspace a float32 launch needs
@@ -83,6 +83,10 @@ _SIGNATURES = {
     "btsbot_int8_block": [_P] * 16 + [ctypes.c_float] * 3 + [ctypes.c_int] * 7 + [_P],
     # C, H, W -> shared memory of one block of it (0: it does not take them)
     "btsbot_int8_block_smem": [ctypes.c_int] * 3,
+    # MaxViT's window / grid attention (csrc/partition_attention.cu): qkv,
+    # table, out, B, H, W, C, P, grid, scale, is_bf16, stream
+    "btsbot_partition_attention": [_P] * 3 + [ctypes.c_int] * 6 + [ctypes.c_float,
+                                                                    ctypes.c_int, _P],
 }
 
 # entry points that return something other than a CUDA error code

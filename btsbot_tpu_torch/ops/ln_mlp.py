@@ -11,11 +11,14 @@ Port of btsbot_tpu/ops/pallas_mlp.py.  Three things live here:
   every other width), float32 in ``csrc/tf32x3.cu`` at every width
   ("tf32x3": three TF32 tensor-core products per product;
   ``_build.kernel_variant``, by width and type).  On a CUDA tensor it launches one of them
-  (and counts the launch in ``fused_ln_mlp.launches`` and
-  ``.launches_by_width``) or raises; only a CPU tensor takes the plain
+  (and counts the launch in ``fused_ln_mlp.launches``,
+  ``.launches_by_width`` and, while a profiler records, the counter
+  ``fused_ln_mlp.launches``) or raises; only a CPU tensor takes the plain
   version.  Its backward recomputes the plain version, as the JAX custom VJP
   does (pallas_mlp.py:128-131).  Every ``inceptionnext_*`` block calls it
-  (models.convnext.InceptionNeXtBlock), at hidden width ratio·C;
+  (models.convnext.InceptionNeXtBlock), at hidden width ratio·C, and every
+  MaxViT attention block's MLP half (models.maxvit.PartitionAttention: γ = 1,
+  LN eps 1e-5, an argument of the kernels);
 * ``fast_convnext_block`` / ``fast_convnext_backbone`` /
   ``fast_mm_convnext_logits`` — a full eval-mode mm_ConvNeXt forward from a
   reference-named state dict, with the depthwise, stem and downsample
@@ -28,6 +31,7 @@ Weights keep the layout of ``nn.Linear`` (fc1 (4C, C), fc2 (C, 4C)).
 
 from __future__ import annotations
 
+import functools
 from typing import Mapping
 
 import torch
@@ -35,6 +39,7 @@ import torch.nn.functional as F
 
 from ..core.config import normalize_config
 from ..models.common import gelu
+from ..utils import profiling
 from . import _build
 from ._autograd import recompute_backward
 
@@ -47,17 +52,20 @@ def layer_norm_f32(h: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (h - mu) * torch.rsqrt(var + eps)
 
 
-def ln_mlp_reference(h, shortcut, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, gamma):
+def ln_mlp_reference(h, shortcut, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, gamma,
+                     eps: float = 1e-6):
     """Plain version: shortcut + γ·(fc2(GELU(fc1(LN(h))))), h and shortcut
-    (M, C); each product is rounded to h's type before its bias."""
+    (M, C); each product is rounded to h's type before its bias; ``eps`` the
+    LayerNorm's (1e-6 in the ConvNeXt-family blocks, 1e-5 in MaxViT's)."""
     dtype = h.dtype
-    x = layer_norm_f32(h).to(dtype) * ln_w.to(dtype) + ln_b.to(dtype)
+    x = layer_norm_f32(h, eps).to(dtype) * ln_w.to(dtype) + ln_b.to(dtype)
     x = gelu(F.linear(x, fc1_w.to(dtype)) + fc1_b.to(dtype))
     x = F.linear(x, fc2_w.to(dtype)) + fc2_b.to(dtype)
     return shortcut + x * gamma.to(dtype)
 
 
-def _launch_ln_mlp(h, shortcut, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, gamma):
+def _launch_ln_mlp(h, shortcut, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, gamma,
+                   eps: float = 1e-6):
     if h.dim() != 2 or shortcut.shape != h.shape:
         raise ValueError(f"fused_ln_mlp: h and shortcut must be one (M, C) shape, "
                          f"got {tuple(h.shape)} and {tuple(shortcut.shape)}")
@@ -74,32 +82,38 @@ def _launch_ln_mlp(h, shortcut, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, gamma):
     ws = _build.kernel_workspace(variant, h, m, c, hidden, taps=False)
     launch = getattr(_build.library(), _build.ENTRY_POINTS["ln_mlp"][variant])
     err = launch(*[t.data_ptr() for t in ops], out.data_ptr(), *_build.workspace_args(ws),
-                 m, c, hidden, *_build.type_args(variant), _build.current_stream(h))
+                 m, c, hidden, eps, *_build.type_args(variant), _build.current_stream(h))
     _build.check(err, f"fused_ln_mlp ({variant}, C={c}, hidden={hidden})")
     _build.count_launch(fused_ln_mlp, variant, c, hidden)
+    profiling.count("fused_ln_mlp.launches")
     return out
 
 
 class _FusedLnMlp(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, *args):
+    def forward(ctx, h, shortcut, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, gamma, eps=1e-6):
+        args = (h, shortcut, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, gamma)
         ctx.save_for_backward(*args)
-        return _launch_ln_mlp(*args)
+        ctx.eps = eps
+        return _launch_ln_mlp(*args, eps)
 
     @staticmethod
     def backward(ctx, grad_out):
-        return recompute_backward(ln_mlp_reference, ctx.saved_tensors,
-                                  ctx.needs_input_grad, grad_out)
+        grads = recompute_backward(functools.partial(ln_mlp_reference, eps=ctx.eps),
+                                   ctx.saved_tensors, ctx.needs_input_grad[:9], grad_out)
+        return grads + (None,) * (len(ctx.needs_input_grad) - 9)
 
 
-def fused_ln_mlp(h, shortcut, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, gamma):
-    """(M, C) fused LN → MLP → γ + residual.  h: the depthwise conv's output;
-    shortcut: the block input.  CUDA tensors go through the kernel, CPU
-    tensors through ``ln_mlp_reference``."""
+def fused_ln_mlp(h, shortcut, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, gamma,
+                 eps: float = 1e-6):
+    """(M, C) fused LN → MLP → γ + residual.  h: the depthwise conv's output
+    (MaxViT: the map itself); shortcut: the block input; ``eps`` the
+    LayerNorm's.  CUDA tensors go through the kernel, CPU tensors through
+    ``ln_mlp_reference``."""
     args = (h, shortcut, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, gamma)
     if h.device.type == "cpu":
-        return ln_mlp_reference(*args)
-    return _FusedLnMlp.apply(*args)
+        return ln_mlp_reference(*args, eps=eps)
+    return _FusedLnMlp.apply(*args, eps)
 
 
 fused_ln_mlp.launches = 0

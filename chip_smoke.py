@@ -67,16 +67,22 @@ convnext_pico, 63×63×3 triplets + 25 metadata features) on the card:
    for 1 epoch from those two run directories with its branch parameters
    bit-identical afterwards; alerts/s and mm_cnn's train steps/s
    (information only);
-8. MaxViT at ``maxvit_tiny_rw_224.sw_in1k`` full depth (no hand-written
-   kernel: cuBLAS / cuDNN; bias tables drawn at std 0.5), ``mm_MaxViT``
+8. MaxViT at ``maxvit_tiny_rw_224.sw_in1k`` full depth (the attention core
+   in ``csrc/partition_attention.cu`` and the MLP halves in ``fused_ln_mlp``,
+   22 launches of each a forward; the rest cuBLAS / cuDNN; bias tables drawn
+   at std 0.5): the attention kernel against its plain version at the four
+   stage shapes at batch 3072 in both modes (bf16, and f32 at batch 256)
+   with its time, the plain version's and the bound; ``mm_MaxViT``
    (metadata 128/128, combined 64/32) and the image-only ``MaxViT`` (256/32
    head): f32 logits and pooled features on the card within rtol 1e-4 /
    atol 1e-5 of the host's on 16 alerts; ``AlertScorer`` in bf16 at batch
    1,024 and f32 at 512 on 2,148 alerts (bf16 within 0.01 of f32) with
    alerts/s and peak memory; ``AlertStreamScorer`` on 1,024 packets (drop
    masks identical to the array path's); the bf16 forward split with CUDA
-   events into stem, MBConvs, attention, MLPs and the rest beside each
-   part's FLOP bound; one f32 train step on the card against the host on 8
+   events into stem, MBConvs, attention (qkv, the kernel, proj), MLP halves
+   (LN1, the residual, ``fused_ln_mlp``) and the rest beside each part's
+   FLOP bound (counted on a host copy: the kernels are no PyTorch
+   operators); one f32 train step on the card against the host on 8
    alerts (loss rtol 1e-4, running statistics 1e-5); ``cli.train`` for
    mm_MaxViT, MaxViT and um_nn (1 epoch at batch 32 on 512 + 256 alerts),
    train steps/s, then ``frozen_fusion`` over the MaxViT and um_nn runs with
@@ -1657,7 +1663,7 @@ def _maxvit_flops(model, images, meta) -> dict:
 
     parts = {"stem": re.compile(r"\.stem$"), "MBConv": re.compile(r"blocks\.\d+\.conv$"),
              "attention": re.compile(r"attn_(block|grid)\.attn$"),
-             "MLP": re.compile(r"attn_(block|grid)\.mlp$")}
+             "MLP": re.compile(r"attn_(block|grid)$")}
     with torch.inference_mode(), FlopCounterMode(display=False) as counter:
         model(images, meta)
     out = {k: 0 for k in parts}
@@ -1665,19 +1671,21 @@ def _maxvit_flops(model, images, meta) -> dict:
         for part, pattern in parts.items():
             if pattern.search(name):
                 out[part] += sum(ops.values())
+    out["MLP"] -= out["attention"]  # the halves less their attention: the MLPs
     out["total"] = counter.get_total_flops()
     return out
 
 
 def _maxvit_split(sc, images, meta, iters: int = 5) -> dict:
     """ms of the scorer's forward split with CUDA events into the stem, the
-    MBConvs, the attention (window + grid), the MLPs and everything else
-    (resize, LayerNorms, partitions, residuals, pool, heads, sigmoid)."""
+    MBConvs, the attention (window + grid: qkv, the kernel, proj), the MLP
+    halves (the attention halves less their attention: LN1, the residual,
+    ``fused_ln_mlp``) and everything else (resize, pool, heads, sigmoid)."""
     import torch
     from btsbot_tpu_torch.models import maxvit as mx
 
     kinds = {mx.Stem: "stem", mx.MBConv: "MBConv", mx.RelPosAttention: "attention",
-             mx.TransformerMlp: "MLP"}
+             mx.PartitionAttention: "MLP"}
     spans = {k: [] for k in kinds.values()}
     handles = []
 
@@ -1710,6 +1718,7 @@ def _maxvit_split(sc, images, meta, iters: int = 5) -> dict:
     out = {k: sum(a.elapsed_time(b) for a, b in v) / iters for k, v in spans.items()}
     out["forward"] = whole[0].elapsed_time(whole[1]) / iters
     out["rest"] = out["forward"] - sum(out[k] for k in kinds.values())
+    out["MLP"] -= out["attention"]
     return out
 
 
@@ -1799,8 +1808,10 @@ def _serve_maxvit(name, config, trips, meta, state) -> dict:
               else torch.randn(b, len(META_COLS), generator=g).to(DEVICE))
     split = _maxvit_split(scorers["bf16"], images, meta_t)
     try:
-        flops = _maxvit_flops(scorers["bf16"].model, images[:1].bfloat16(),
-                              None if meta_t is None else meta_t[:1].bfloat16())
+        host = build_model(cfg, dtype=torch.float32, device="cpu").eval()
+        host.load_state_dict({k: v.cpu() for k, v in weights.items()}, strict=True)
+        flops = _maxvit_flops(host, images[:1].cpu(),
+                              None if meta_t is None else meta_t[:1].cpu())
     except Exception as e:  # noqa: BLE001 — information only
         print(f"  flop counter failed ({e!r}); bounds not measured", flush=True)
         flops = None
@@ -1854,10 +1865,68 @@ def _host_vs_card_step(config, weights, batch) -> None:
           "statistics within 1e-5")
 
 
+MAXVIT_STAGES = [(56, 64), (28, 128), (14, 256), (7, 512)]  # side, C at 224
+MAXVIT_ATTENTION_F32_BATCH = 256
+
+
+def _attention_kernel_rows(state: dict) -> list:
+    """The partition-attention kernel against its plain version at the four
+    stage shapes, window and grid: bf16 at batch 3072 (rtol 2^-7, atol 2^-7
+    of the largest |v|, as tests/test_torch_partition_attention.py holds it),
+    f32 at batch 256 (rtol 1e-5 / atol 1e-5); ms of
+    both beside the bound (qkv read and the output written once at 3.35 TB/s,
+    or 4 · 49 · C operations a token at the type's peak)."""
+    import torch
+    from btsbot_tpu_torch.ops import partition_attention as pa
+
+    rows = []
+    for dname, batch in (("bfloat16", BATCH), ("float32", MAXVIT_ATTENTION_F32_BATCH)):
+        dtype = getattr(torch, dname)
+        for side, c in MAXVIT_STAGES:
+            g = torch.Generator(device=DEVICE).manual_seed(side)
+            qkv = torch.randn(batch, side, side, 3 * c, generator=g, device=DEVICE).to(dtype)
+            table = torch.randn(169, c // 32, generator=g, device=DEVICE)
+            item = qkv.element_size()
+            tokens = batch * side * side
+            work = ((4 * c * tokens + 169 * c // 32) * item, 4.0 * 49 * c * tokens)
+            bound_ms, by = _bound(*work, "bfloat16" if dname == "bfloat16" else "float32")
+            for grid in (False, True):
+                with torch.inference_mode():
+                    got = pa.partition_attention(qkv, table, 7, grid)
+                    want = pa.partition_attention_reference(qkv, table, 7, grid)
+                    torch.cuda.synchronize()
+                    d = (got.float() - want.float()).abs()
+                    # bf16: a probability or an output one bf16 step off moves an
+                    # output by 2^-8 of the largest |v| or of itself; twice both
+                    tol = ((2 ** -7, 2 ** -7 * float(qkv[..., 2 * c:].abs().max()))
+                           if dname == "bfloat16" else (1e-5, 1e-5))
+                    excess = d - tol[0] * want.float().abs()
+                    ok, worst = bool((excess <= tol[1]).all()), float(d.max())
+                    differ = float((d > 0).float().mean())
+                    del got, want, d, excess
+                    kernel = time_ms(lambda: pa.partition_attention(qkv, table, 7, grid))
+                    plain = time_ms(lambda: pa.partition_attention_reference(qkv, table, 7,
+                                                                             grid), iters=3)
+                mode = "grid" if grid else "window"
+                check(ok, f"partition_attention {dname} {mode} ({batch},{side},{side},{3 * c}) "
+                          f"within rtol {tol[0]:.3g} / atol {tol[1]:.3g} of its plain version "
+                          f"(max|d| {worst:.3g}, {100 * differ:.3f} % of outputs differ)")
+                print(f"  partition_attention {dname} {mode} ({batch},{side},{side},{3 * c}): "
+                      f"kernel {kernel:.4f} ms, plain {plain:.4f} ms, bound {bound_ms:.4f} ms "
+                      f"({by}; {100 * bound_ms / kernel:.1f} %), worst {worst:.3g} on "
+                      f"{state['gpu']}", flush=True)
+                rows.append({"dtype": dname, "mode": mode, "batch": batch, "side": side, "C": c,
+                             "kernel_ms": kernel, "plain_ms": plain, "bound_ms": bound_ms})
+            del qkv
+            torch.cuda.empty_cache()
+    return rows
+
+
 def phase_maxvit(state: dict) -> None:
-    """MaxViT / mm_MaxViT at maxvit_tiny_rw_224 (no hand-written kernel:
-    cuBLAS and cuDNN): serving, training, a fusion over a MaxViT run and
-    the 224 → 160 retarget."""
+    """MaxViT / mm_MaxViT at maxvit_tiny_rw_224 (the attention core on
+    ``csrc/partition_attention.cu``, the MLP halves on ``fused_ln_mlp``):
+    the attention kernel alone, serving, training, a fusion over a MaxViT run
+    and the 224 → 160 retarget."""
     import numpy as np
     import torch
     from btsbot_tpu_torch import AlertScorer
@@ -1877,14 +1946,22 @@ def phase_maxvit(state: dict) -> None:
         np.float32)
     meta = np.random.default_rng(32).normal(size=(MAXVIT_ALERTS, len(META_COLS))).astype(
         np.float32)
+    from btsbot_tpu_torch.ops.partition_attention import partition_attention
+
+    state["maxvit_attention"] = _attention_kernel_rows(state)
     _zero_kernel_counts()
+    partition_attention.launches = 0
     served = {name: _serve_maxvit(name, configs[name], trips, meta, state)
               for name in ("mm_MaxViT", "MaxViT")}
     _stream_family("mm_MaxViT", configs["mm_MaxViT"], served["mm_MaxViT"]["weights"],
                    served["mm_MaxViT"]["scorer_bf16"], batch=MAXVIT_BATCH["bf16"])
     counts = _kernel_counts()
-    check(counts == {k: 0 for k in counts}, f"MaxViT serving launches no block kernel "
-                                           f"({counts})")
+    check(counts["convnext_block_fused"] == 0 and counts["fused_ln_mlp"] > 0
+          and counts["fused_ln_mlp"] == partition_attention.launches
+          and counts["fused_ln_mlp"] % 22 == 0,
+          f"MaxViT serving launches no block kernel and 22 partition_attention and 22 "
+          f"fused_ln_mlp launches a forward ({counts}, partition_attention "
+          f"{partition_attention.launches})")
 
     # ---- training
     tmp, _ = _smoke_split(state)

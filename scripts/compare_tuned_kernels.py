@@ -39,14 +39,22 @@ ENTRIES = {"btsbot_convnext_block": PICO_STAGES, "btsbot_ln_mlp": PICO_STAGES,
 
 
 def load(root: Path):
-    """Build ``root``'s kernels into ``root/build/kernels`` and load them."""
+    """Build ``root``'s kernels into ``root/build/kernels`` and load them,
+    each entry point with the signature of ``root``'s own ``_build.py`` (a
+    checkout from before the LN -> MLP kernels took the LN eps has none)."""
+    import importlib.util
+
     from btsbot_tpu_torch.ops import _build
+    spec = importlib.util.spec_from_file_location(
+        f"_build_{abs(hash(str(root)))}", root / "btsbot_tpu_torch" / "ops" / "_build.py")
+    theirs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(theirs)
     _build.CSRC_DIR = root / "btsbot_tpu_torch" / "csrc"
     _build.BUILD_DIR = root / "build" / "kernels"
     lib = ctypes.CDLL(str(_build.build()))
     for name in ENTRIES:
         fn = getattr(lib, name)
-        fn.argtypes = _build._SIGNATURES[name]
+        fn.argtypes = theirs._SIGNATURES[name]
         fn.restype = ctypes.c_int
     return lib
 
@@ -80,7 +88,8 @@ def launcher(lib, name: str, x, params, out):
     else:  # h = x's rows, shortcut = x's rows, then the block's params from ln_w on
         rows = x.data_ptr()
         ptrs = [rows, rows] + [p.data_ptr() for p in params[2:]]
-        args = ptrs + [out.data_ptr(), b * h * w, c, hidden, 1, stream]
+        eps = [1e-6] if ctypes.c_float in fn.argtypes else []  # the LN eps, where taken
+        args = ptrs + [out.data_ptr(), b * h * w, c, hidden, *eps, 1, stream]
 
     def call():
         err = fn(*args)

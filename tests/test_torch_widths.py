@@ -50,8 +50,10 @@ class _Recorder:
             return lambda m, c, hidden, taps: 1
 
         def entry(*args):
-            # ..., C, hidden, [is_bf16: the bf16 entry points,] stream
-            c, hidden = args[-3:-1] if name.endswith("_tf32x3") else args[-4:-2]
+            # ..., C, hidden, [LN eps: the LN -> MLP entry points,] [is_bf16: the
+            # bf16 entry points,] stream
+            end = -1 - ("ln_mlp" in name) - (not name.endswith("_tf32x3"))
+            c, hidden = args[end - 2:end]
             self.calls.append((name, c, hidden))
             return 0
         return entry
