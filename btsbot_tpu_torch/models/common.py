@@ -107,6 +107,13 @@ class BatchNorm1d(nn.BatchNorm1d):
         return _flax_batch_norm_train(self, x, (0,))
 
 
+def batch_norm_nhwc(x: torch.Tensor, mean, var, weight, bias, eps: float) -> torch.Tensor:
+    """Eval-mode BatchNorm of an NHWC map over its channel axis, on its NCHW
+    view: float32 inside whatever the input's type; NHWC out."""
+    return F.batch_norm(x.permute(0, 3, 1, 2), mean, var, weight, bias, False, 0.0,
+                        eps).permute(0, 2, 3, 1)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm of an NHWC map over its last (channel) axis."""
     data_group = None
@@ -117,9 +124,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             return _flax_batch_norm_train(self, x, (0, 1, 2))
-        # float32 inside whatever the input's type; NHWC out
-        return F.batch_norm(x.permute(0, 3, 1, 2), self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps).permute(0, 2, 3, 1)
+        return batch_norm_nhwc(x, self.running_mean, self.running_var, self.weight,
+                               self.bias, self.eps)
 
 
 class Dropout(nn.Dropout):

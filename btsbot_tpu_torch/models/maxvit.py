@@ -24,11 +24,16 @@ partitions, and ``ops.partition_attention`` gathers them by index inside
 its kernel (``csrc/partition_attention.cu``; on the CPU the plain
 partition → attention → reverse).  The MLP half, x + fc2(GELU(fc1(LN2(x)))),
 is ``ops.ln_mlp.fused_ln_mlp`` with γ = 1 and eps 1e-5 (``csrc/ln_mlp.cu``
-in bfloat16, ``csrc/tf32x3.cu`` in float32).  So a forward launches two
-kernels a block, 22 at maxvit_tiny's depths, and no partition copy.  The
-stem, the MBConvs (cuDNN depthwise convs, cuBLAS 1×1 products), LN1, qkv,
-proj and the heads are PyTorch's.  Spans ``maxvit.mbconv`` and
-``maxvit.attention`` cover each block's two halves while a profiler records.
+in bfloat16, ``csrc/tf32x3.cu`` in float32).  In eval mode an MBConv's
+middle, BatchNorm → GELU → depthwise 3×3 → BatchNorm → GELU, is
+``ops.mbconv_dw`` (``csrc/mbconv_dw.cu``: one launch, rounded where the
+modules round); in train mode, where BatchNorm takes the batch's
+statistics, the modules run it.  So an eval forward launches three kernels
+a block, 33 at maxvit_tiny's depths, and no partition copy.  The stem, the
+rest of each MBConv (pre-norm, the cuBLAS 1×1 products, squeeze-excite, the
+shortcut), LN1, qkv, proj and the heads are PyTorch's.  Spans
+``maxvit.mbconv`` and ``maxvit.attention`` cover each block's two halves
+while a profiler records.
 
 Rounding points are the JAX package's: GELU erf in float32 and tanh in
 bfloat16 (``models.common.gelu``); attention scores accumulated in float32
@@ -55,6 +60,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.ln_mlp import fused_ln_mlp
+from ..ops.mbconv_dw import mbconv_dw
 from ..ops.partition_attention import (  # noqa: F401 — re-exported for callers of the model
     HEAD_DIM,
     grid_partition,
@@ -183,9 +189,18 @@ class MBConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shortcut = x if self.shortcut is None else self.shortcut(x)
-        x = gelu(self.norm1(self.conv1_1x1(self.pre_norm(x))))
-        x = gelu(self.norm2(self.conv2_kxk(x)))
+        x = self.conv1_1x1(self.pre_norm(x))
+        if self.training:  # batch statistics: the chain as it stands
+            x = gelu(self.norm2(self.conv2_kxk(gelu(self.norm1(x)))))
+        else:
+            x = mbconv_dw(x, _running(self.norm1), self.conv2_kxk.weight, _running(self.norm2),
+                          self.conv2_kxk.stride[0], (self.norm1.eps, self.norm2.eps))
         return self.conv3_1x1(self.se(x)) + shortcut
+
+
+def _running(bn: BatchNorm2d) -> tuple:
+    """An eval-mode BatchNorm's (running mean, running var, weight, bias)."""
+    return bn.running_mean, bn.running_var, bn.weight, bn.bias
 
 
 class RelPos(nn.Module):

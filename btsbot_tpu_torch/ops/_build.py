@@ -87,6 +87,11 @@ _SIGNATURES = {
     # table, out, B, H, W, C, P, grid, scale, is_bf16, stream
     "btsbot_partition_attention": [_P] * 3 + [ctypes.c_int] * 6 + [ctypes.c_float,
                                                                     ctypes.c_int, _P],
+    # MaxViT's MBConv middle (csrc/mbconv_dw.cu): x, taps, BN1's mean, var,
+    # weight, bias, BN2's, out, B, H, W, C, stride, BN1's eps, BN2's, is_bf16,
+    # params_bf16, stream
+    "btsbot_mbconv_dw": [_P] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+    + [ctypes.c_int] * 2 + [_P],
 }
 
 # entry points that return something other than a CUDA error code

@@ -77,7 +77,10 @@ def grid_reverse(x: torch.Tensor, grid: int, h: int, w: int) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _index(win: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(rel_position_index(win).astype(np.int64).reshape(-1)).to(device)
+    # a normal tensor even when first asked for under inference mode: autograd
+    # saves it for the recompute backward of a later training step
+    with torch.inference_mode(False):
+        return torch.from_numpy(rel_position_index(win).astype(np.int64).reshape(-1)).to(device)
 
 
 def relative_bias(table: torch.Tensor, win: int) -> torch.Tensor:

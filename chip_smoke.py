@@ -69,10 +69,14 @@ convnext_pico, 63×63×3 triplets + 25 metadata features) on the card:
    (information only);
 8. MaxViT at ``maxvit_tiny_rw_224.sw_in1k`` full depth (the attention core
    in ``csrc/partition_attention.cu`` and the MLP halves in ``fused_ln_mlp``,
-   22 launches of each a forward; the rest cuBLAS / cuDNN; bias tables drawn
+   22 launches of each a forward, the MBConvs' middles in
+   ``csrc/mbconv_dw.cu``, 11; the rest cuBLAS / cuDNN; bias tables drawn
    at std 0.5): the attention kernel against its plain version at the four
    stage shapes at batch 3072 in both modes (bf16, and f32 at batch 256)
-   with its time, the plain version's and the bound; ``mm_MaxViT``
+   with its time, the plain version's and the bound; the MBConv kernel
+   against its plain version at the eight MBConv shapes (both types at the
+   scorer's batches 768 and 192, bf16 at 3072) with its time at 3072 beside
+   the plain version's, cuDNN's depthwise conv's and the bound; ``mm_MaxViT``
    (metadata 128/128, combined 64/32) and the image-only ``MaxViT`` (256/32
    head): f32 logits and pooled features on the card within rtol 1e-4 /
    atol 1e-5 of the host's on 16 alerts; ``AlertScorer`` in bf16 at batch
@@ -221,7 +225,10 @@ convnext_pico, 63×63×3 triplets + 25 metadata features) on the card:
     bounds; ``int8_block``: a pico int8 forward's 12 launches against their
     bound, PR 11's eager block and the plain version; ``int8_dwconv``: the
     same 12 shapes against their bound and cuDNN's, launched by the
-    calibration), alerts/s for each scorer and the daemon, int8
+    calibration; ``partition_attention`` and ``mbconv_dw``: a maxvit_tiny
+    forward's 22 and 11 launches against their bound and the plain
+    version, with the launches phase 8 counted), alerts/s for each scorer
+    and the daemon, int8
     beside bf16 and f32 (information only), the per-width times in a table
     and in ``build/smoke_widths.json``;
 20. the card's name and power limit, then as the last line
@@ -279,6 +286,10 @@ BF16_KERNELS = 3 * (4 + len(WGMMA_WIDTHS))
 # the float32 kernels (csrc/tf32x3.cu): both functions at 1-4 blocks of 32
 # output columns a warpgroup, and with 128-row tiles (C <= 64)
 F32_KERNELS = 2 * (4 + 1)
+# MaxViT's kernels, which use no tensor-core instruction of wgmma's:
+# csrc/partition_attention.cu at P = 1..8 (bf16 one or two heads a block,
+# f32) and csrc/mbconv_dw.cu (bf16 and f32, stride 1 and 2)
+MAXVIT_KERNELS = 3 * 8 + 2 * 2
 
 META_COLS = [
     "sgscore1", "distpsnr1", "sgscore2", "distpsnr2", "fwhm", "magpsf",
@@ -381,7 +392,7 @@ def phase_setup(state: dict) -> None:
         print(f"  ptxas: {text} [{', '.join(sorted(set(kernels)))}]", flush=True)
     # a build that lost the tensor-core path must not pass
     counts = _build.sass_opcode_counts("HGMMA")
-    hgmma = {k: n for k, n in counts.items() if "bf16" in k}
+    hgmma = {k: n for k, n in counts.items() if "bf16" in k and "partition_attention" not in k}
     print(f"  HGMMA instructions in the bf16 kernels: {sorted(hgmma.values())}", flush=True)
     check(len(hgmma) == BF16_KERNELS and min(hgmma.values()) > 0,
           f"all {BF16_KERNELS} bf16 kernels (fused_ln_mlp, the block kernel with and "
@@ -393,12 +404,13 @@ def phase_setup(state: dict) -> None:
     int8_block = [k for k in counts if "int8_block_kernel" in k]
     check(len(f32) == F32_KERNELS and min(f32.values()) > 0 and len(int8) == INT8_KERNELS
           and len(int8_block) == INT8_BLOCK_KERNELS
-          and len(counts) == BF16_KERNELS + F32_KERNELS + INT8_KERNELS + INT8_BLOCK_KERNELS + 2,
+          and len(counts) == BF16_KERNELS + F32_KERNELS + INT8_KERNELS + INT8_BLOCK_KERNELS
+          + MAXVIT_KERNELS + 2,
           f"all {F32_KERNELS} float32 kernels (fused_ln_mlp and the block kernel, x 1-4 "
           f"blocks of 32 output columns a warpgroup and the 128-row tile) hold HGMMA "
           f"instructions, and the library holds no other kernel but the weight split, "
-          f"the split-sum pass, the int8 depthwise kernel in both types and the "
-          f"{INT8_BLOCK_KERNELS} int8 block kernels")
+          f"the split-sum pass, the int8 depthwise kernel in both types, the "
+          f"{INT8_BLOCK_KERNELS} int8 block kernels and MaxViT's {MAXVIT_KERNELS}")
 
 
 # ------------------------------ phase 2 ------------------------------
@@ -1210,7 +1222,10 @@ CPU_ALERTS = 256                     # the conv families' f32 check on the host
 # launch none)
 KERNEL_OF = {"ConvNeXt": "convnext_block_fused", "frozen_fusion": "convnext_block_fused",
              "inceptionnext_pico": "fused_ln_mlp", "inceptionnext_pico.r2": "fused_ln_mlp",
-             "mm_ConvNeXt-nano": "convnext_block_fused"}
+             "mm_ConvNeXt-nano": "convnext_block_fused", "mm_MaxViT": "fused_ln_mlp",
+             "MaxViT": "fused_ln_mlp", "frozen_fusion over MaxViT": "fused_ln_mlp"}
+# launches of that kernel a forward where they are not 12: maxvit_tiny's 22 MLP halves
+LAUNCHES_OF = {"mm_MaxViT": 22, "MaxViT": 22, "frozen_fusion over MaxViT": 22}
 
 
 def _family_configs() -> dict:
@@ -1474,7 +1489,8 @@ def _train_family(config, name, data_dir, out_root, run_name,
                   alerts: tuple | None = None) -> tuple:
     """cli.train on a split of ``alerts`` (train, val; default the smoke
     split's); (result, seconds, {kernel: launches}), with 12 launches of the
-    family's kernel (KERNEL_OF) per train step and eval batch checked."""
+    family's kernel (KERNEL_OF; LAUNCHES_OF where not 12) per train step and
+    eval batch checked."""
     import numpy as np
     import torch
     from btsbot_tpu_torch.cli.train import main as train_cli
@@ -1499,7 +1515,8 @@ def _train_family(config, name, data_dir, out_root, run_name,
     alerts = alerts or (TRAIN_ALERTS, VAL_ALERTS)
     steps = alerts[0] // config["batch_size"] * config["epochs"]
     evals = -(-alerts[1] // config["batch_size"]) * config["epochs"]
-    want = {k: 12 * (steps + evals) if KERNEL_OF.get(name) == k else 0 for k in counts}
+    per_forward = LAUNCHES_OF.get(name, 12)
+    want = {k: per_forward * (steps + evals) if KERNEL_OF.get(name) == k else 0 for k in counts}
     check(counts == want, f"{name}: launches {want} in training ({steps} steps + "
                           f"{evals} eval batches)")
     return result, secs, counts
@@ -1916,10 +1933,150 @@ def _attention_kernel_rows(state: dict) -> list:
                       f"({by}; {100 * bound_ms / kernel:.1f} %), worst {worst:.3g} on "
                       f"{state['gpu']}", flush=True)
                 rows.append({"dtype": dname, "mode": mode, "batch": batch, "side": side, "C": c,
-                             "kernel_ms": kernel, "plain_ms": plain, "bound_ms": bound_ms})
+                             "kernel_ms": kernel, "plain_ms": plain, "bound_ms": bound_ms,
+                             "max_abs_err": worst})
             del qkv
             torch.cuda.empty_cache()
     return rows
+
+
+# (input side, mid channels, stride) of maxvit_tiny's MBConvs at 224, one of each
+MAXVIT_MBCONVS = [(112, 256, 2), (56, 256, 1), (56, 256, 2), (28, 512, 1), (28, 512, 2),
+                  (14, 1024, 1), (14, 1024, 2), (7, 2048, 1)]
+# the scorer's padded batches below 3072 (its ladder 3072 / 768 / 192), where
+# the kernel is checked in both types; at 3072 it is checked in bf16, the
+# serving type
+MAXVIT_MBCONV_CHECK_BATCHES = (768, 192)
+MAXVIT_MBCONV_CHUNK = 192  # images a call of the plain version: its copies of the map fit
+
+
+def _mbconv_check(h, n1, taps, n2, stride, got, dname) -> float:
+    """Checks the kernel's output ``got`` of the map h against the plain
+    version, run MAXVIT_MBCONV_CHUNK images at a time (every image is its
+    own: BatchNorm takes the running statistics); bf16 within 2^-6 relative
+    / 2^-5 absolute (a few bf16 ulps of five rounding points, as
+    tests/test_torch_mbconv_dw.py bounds them one by one), f32 rtol 1e-5 /
+    atol 1e-5.  Returns the largest |difference|."""
+    import torch
+    from btsbot_tpu_torch.ops import mbconv_dw as mb
+
+    tol = (2 ** -6, 2 ** -5) if dname == "bfloat16" else (1e-5, 1e-5)
+    worst, beyond, differ = 0.0, 0, 0
+    with torch.inference_mode():
+        for i in range(0, h.shape[0], MAXVIT_MBCONV_CHUNK):
+            want = mb.mbconv_dw_reference(h[i:i + MAXVIT_MBCONV_CHUNK], n1, taps, n2,
+                                          stride).float()
+            d = (got[i:i + MAXVIT_MBCONV_CHUNK].float() - want).abs()
+            beyond += int((d > tol[1] + tol[0] * want.abs()).sum())
+            differ += int((d > 0).sum())
+            worst = max(worst, float(d.max()))
+            del want, d
+    b, side, _, mid = h.shape
+    check(beyond == 0, f"mbconv_dw {dname} ({b},{side},{side},{mid}) stride {stride} within "
+                       f"rtol {tol[0]:.3g} / atol {tol[1]:.3g} of its plain version (max|d| "
+                       f"{worst:.3g}, {beyond} beyond, {100 * differ / got.numel():.3f} % "
+                       f"differ)")
+    return worst
+
+
+def _mbconv_kernel_rows(state: dict) -> list:
+    """The MBConv kernel against its plain version (``_mbconv_check``) at
+    maxvit_tiny's eight MBConv shapes: both types at the scorer's batches 768
+    and 192, bf16 at 3072 (the launch that is timed); ms at batch 3072 in
+    bf16 of the kernel, the plain version (cuDNN's grouped conv and four
+    eager passes), cuDNN's depthwise conv alone (the yardstick,
+    ``library_ms``) and the bound (the input map read once, the output
+    written once, the taps and the BN vectors, at 3.35 TB/s)."""
+    import torch
+    import torch.nn.functional as F
+    from btsbot_tpu_torch.ops import mbconv_dw as mb
+
+    def draw(batch, side, mid, dtype):
+        g = torch.Generator(device=DEVICE).manual_seed(side * mid + batch)
+        h = torch.randn(batch, side, side, mid, generator=g, device=DEVICE).to(dtype)
+        norms = []
+        for _ in range(2):
+            mean = 0.5 * torch.randn(mid, generator=g, device=DEVICE)
+            var = 0.5 + torch.rand(mid, generator=g, device=DEVICE)
+            weight = 1 + 0.3 * torch.randn(mid, generator=g, device=DEVICE)
+            bias = mean * weight / torch.sqrt(var + mb.BN_EPS) + 0.5  # GELU(BN(0)) != 0
+            norms.append((mean, var, weight, bias))
+        taps = torch.randn(mid, 1, 3, 3, generator=g, device=DEVICE) / 3
+        return h, norms[0], taps, norms[1]
+
+    rows = []
+    for side, mid, stride in MAXVIT_MBCONVS:
+        out_side = (side - 1) // stride + 1
+        worst = 0.0
+        for batch in MAXVIT_MBCONV_CHECK_BATCHES:
+            for dname in ("bfloat16", "float32"):
+                h, n1, taps, n2 = draw(batch, side, mid, getattr(torch, dname))
+                with torch.inference_mode():
+                    got = mb.mbconv_dw(h, n1, taps, n2, stride)
+                worst = max(worst, _mbconv_check(h, n1, taps, n2, stride, got, dname))
+                del h, got
+        h, n1, taps, n2 = draw(BATCH, side, mid, torch.bfloat16)
+        bytes_moved = (BATCH * (side * side + out_side * out_side) * mid * 2 + 9 * mid * 2
+                       + 4 * mid * 4)
+        bound_ms, _ = _bound(bytes_moved, 18.0 * BATCH * out_side * out_side * mid, "bfloat16")
+        with torch.inference_mode():
+            kernel = time_ms(lambda: mb.mbconv_dw(h, n1, taps, n2, stride))
+            got = mb.mbconv_dw(h, n1, taps, n2, stride)  # the timed launch, once more
+        worst = max(worst, _mbconv_check(h, n1, taps, n2, stride, got, "bfloat16"))
+        del got
+        nchw = h.permute(0, 3, 1, 2)
+        w16 = taps.to(torch.bfloat16)
+        with torch.inference_mode():
+            plain = time_ms(lambda: mb.mbconv_dw_reference(h, n1, taps, n2, stride), iters=3)
+            library = time_ms(lambda: F.conv2d(nchw, w16, None, stride, 1, 1, mid), iters=3)
+        print(f"  mbconv_dw bf16 ({BATCH},{side},{side},{mid}) stride {stride}: kernel "
+              f"{kernel:.4f} ms, plain {plain:.4f} ms, library (cuDNN depthwise alone) "
+              f"{library:.4f} ms, bound {bound_ms:.4f} ms ({100 * bound_ms / kernel:.1f} %) "
+              f"on {state['gpu']}", flush=True)
+        rows.append({"side": side, "mid": mid, "stride": stride, "batch": BATCH,
+                     "kernel_ms": kernel, "plain_ms": plain, "library_ms": library,
+                     "bound_ms": bound_ms, "max_abs_err": worst})
+        del h, nchw
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _maxvit_entries(state: dict) -> list:
+    """The kernels line's entries of MaxViT's two kernels, which replace no
+    Pallas kernel: one maxvit_tiny forward's launches at batch 3072 in bf16
+    (the serving type), each shape's time × the launches of it a forward,
+    and the launches phase "maxvit" counted."""
+    from btsbot_tpu_torch.models.maxvit import maxvit_spec
+
+    # a stage's blocks by its side: two attention launches each, and an
+    # MBConv each, the first at stride 2 from the side before
+    depths = dict(zip((56, 28, 14, 7), maxvit_spec(MAXVIT_KIND)["depths"]))
+    att = [(r, depths[r["side"]]) for r in state["maxvit_attention"] if r["dtype"] == "bfloat16"]
+    mb = [(r, 1 if r["stride"] == 2 else depths[r["side"]] - 1) for r in state["maxvit_mbconv"]]
+    launches = state["maxvit_launches"]
+    entries = []
+    for name, source, rows, per_forward, library in (
+            ("partition_attention", "partition_attention.cu", att, 22, False),
+            ("mbconv_dw", "mbconv_dw.cu", mb, 11, True)):
+        def total(key):
+            return sum(r[key] * n for r, n in rows)
+        check(sum(n for _, n in rows) == per_forward,
+              f"{name}: the rows cover a forward's {per_forward} launches")
+        entries.append({
+            "name": name, "route": "cuda", "source": f"btsbot_tpu_torch/csrc/{source}",
+            "replaces": "no Pallas counterpart (btsbot_tpu/models/maxvit.py leaves it to XLA)",
+            "launches": launches[name]["total"],
+            "launches_by_path": {"MaxViT / mm_MaxViT serving and the mm_MaxViT stream":
+                                 launches[name]["serving"]},
+            "launches_a_forward": per_forward,
+            "max_abs_err": max(r["max_abs_err"] for r, _ in rows),
+            "ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
+            "library_ms": total("library_ms") if library else None,
+            "bound_ms": total("bound_ms"), "bound_by": "bytes",
+            "per": f"one maxvit_tiny forward at batch {BATCH}, bfloat16 ({per_forward} "
+                   f"launches)" + ("; library_ms: cuDNN's depthwise conv alone" if library
+                                   else "")})
+    return entries
 
 
 def phase_maxvit(state: dict) -> None:
@@ -1946,11 +2103,13 @@ def phase_maxvit(state: dict) -> None:
         np.float32)
     meta = np.random.default_rng(32).normal(size=(MAXVIT_ALERTS, len(META_COLS))).astype(
         np.float32)
+    from btsbot_tpu_torch.ops.mbconv_dw import mbconv_dw
     from btsbot_tpu_torch.ops.partition_attention import partition_attention
 
     state["maxvit_attention"] = _attention_kernel_rows(state)
+    state["maxvit_mbconv"] = _mbconv_kernel_rows(state)
     _zero_kernel_counts()
-    partition_attention.launches = 0
+    partition_attention.launches = mbconv_dw.launches = 0
     served = {name: _serve_maxvit(name, configs[name], trips, meta, state)
               for name in ("mm_MaxViT", "MaxViT")}
     _stream_family("mm_MaxViT", configs["mm_MaxViT"], served["mm_MaxViT"]["weights"],
@@ -1958,10 +2117,13 @@ def phase_maxvit(state: dict) -> None:
     counts = _kernel_counts()
     check(counts["convnext_block_fused"] == 0 and counts["fused_ln_mlp"] > 0
           and counts["fused_ln_mlp"] == partition_attention.launches
-          and counts["fused_ln_mlp"] % 22 == 0,
-          f"MaxViT serving launches no block kernel and 22 partition_attention and 22 "
-          f"fused_ln_mlp launches a forward ({counts}, partition_attention "
-          f"{partition_attention.launches})")
+          and counts["fused_ln_mlp"] % 22 == 0
+          and 2 * mbconv_dw.launches == counts["fused_ln_mlp"],
+          f"MaxViT serving launches no block kernel and 22 partition_attention, 22 "
+          f"fused_ln_mlp and 11 mbconv_dw launches a forward ({counts}, partition_attention "
+          f"{partition_attention.launches}, mbconv_dw {mbconv_dw.launches})")
+    serving = {"partition_attention": partition_attention.launches,
+               "mbconv_dw": mbconv_dw.launches}
 
     # ---- training
     tmp, _ = _smoke_split(state)
@@ -2040,6 +2202,10 @@ def phase_maxvit(state: dict) -> None:
                        for name, sv in served.items()}
     state["maxvit"]["train"] = {"step_ms": step_ms, "cli_s": mm_secs,
                                 "fusion_cli_s": fusion_secs, "rate160": rate160}
+    state["maxvit_launches"] = {
+        "partition_attention": {"serving": serving["partition_attention"],
+                                "total": partition_attention.launches},
+        "mbconv_dw": {"serving": serving["mbconv_dw"], "total": mbconv_dw.launches}}
 
 
 # ------------------------------ phase 9 ------------------------------
@@ -4349,6 +4515,7 @@ def phase_report(state: dict) -> None:
         entry["launches_by_width"] = base["launches_by_width"]["tf32x3"]
     kernels += f32_entries
     kernels += _int8_entries(state["int8"])
+    kernels += _maxvit_entries(state)
     _report_widths(state)
     _report_int8(state)
     _report_daemon(state)

@@ -162,6 +162,19 @@ def test_fused_ln_mlp_plain_at_eps_1e5_is_the_references_mlp_half():
     assert torch.isfinite(xg.grad).all()
 
 
+def test_a_bias_first_gathered_in_inference_mode_still_trains():
+    """The cached bias index outlives the inference-mode call that made it
+    and is saved for backward by a later training step."""
+    pa._index.cache_clear()
+    table = torch.randn(9, 2)
+    with torch.inference_mode():
+        pa.relative_bias(table, 2)
+    table.requires_grad_()
+    pa.relative_bias(table, 2).sum().backward()
+    assert torch.equal(table.grad, torch.bincount(torch.from_numpy(
+        pa.rel_position_index(2).reshape(-1)).long(), minlength=9).float()[:, None].expand(9, 2))
+
+
 def test_the_reference_swin_index_is_the_ports():
     from benchmark.reference.mm_maxvit import swin_index
 
