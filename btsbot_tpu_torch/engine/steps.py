@@ -43,11 +43,11 @@ averages the gradients over the data group (the loss is a mean over equal
 shards, so that is the global batch's gradient).  The explicit
 ``all_reduce`` rather than DDP: the step already owns the backward and the
 update, every rank builds the same weights from the seed (DDP's broadcast
-adds nothing), the model keeps its names and its ``plain=`` argument, and
-one collective a step is simple to time.  The returned loss and ``correct``
-are the global batch's (one more ``all_reduce``) and the logits and scores
-are gathered, so every rank returns the same metrics.  The teacher is
-sharded by the student's rules.
+adds nothing), the model keeps its names, and one collective a step is
+simple to time.  The returned loss and ``correct`` are the global batch's
+(one more ``all_reduce``) and the logits and scores are gathered, so every
+rank returns the same metrics.  The teacher is sharded by the student's
+rules.
 """
 
 from __future__ import annotations
@@ -138,13 +138,12 @@ def _global_metrics(mesh, loss, logits, scores, correct) -> dict:
             "correct": both[1].round().long()}
 
 
-def make_train_step(config, plain: bool = False, teacher=None, mesh=None):
+def make_train_step(config, teacher=None, mesh=None):
     """``train_step(state, images, metadata, labels, pos_weight)`` → metrics;
-    the state (model, optimizer, step) is updated in place.  ``plain=True``
-    runs every block (the teacher's too) in its plain version, for holding
-    the kernels against it.  ``teacher``: a model to distill from (see the
-    module doc).  ``mesh``: the state's mesh; the step then takes this
-    rank's rows of the global batch (see the module doc)."""
+    the state (model, optimizer, step) is updated in place.  ``teacher``: a
+    model to distill from (see the module doc).  ``mesh``: the state's mesh;
+    the step then takes this rank's rows of the global batch (see the module
+    doc)."""
     need_triplets = config.need_triplets
     dtype = compute_dtype(config)
     aug_flags = dict(h_flip=bool(config.get("data_aug_h_flip", True)),
@@ -177,10 +176,9 @@ def make_train_step(config, plain: bool = False, teacher=None, mesh=None):
             if teacher is not None:
                 with torch.no_grad():
                     t_logits = teacher(*_typed_inputs(config, images, metadata,
-                                                      teacher_dtype), plain=plain)
+                                                      teacher_dtype))
             image_input, metadata_input = model_inputs(config, images, metadata, dtype)
-            logits = model(image_input=image_input, metadata_input=metadata_input,
-                           plain=plain)
+            logits = model(image_input=image_input, metadata_input=metadata_input)
             loss = weighted_bce_with_logits(logits, labels, pos_weight)
             if teacher is not None:
                 loss = alpha * loss + (1.0 - alpha) * binary_kd_loss(logits, t_logits,

@@ -90,10 +90,8 @@ class MmCnn(nn.Module):
             config["comb_fc1_neurons"], config["comb_fc2_neurons"],
             config["comb_dropout"], "relu")
 
-    def forward(self, image_input=None, metadata_input=None,
-                plain: bool = False) -> torch.Tensor:
-        """Logits (N, 1); the images' type is the compute type.  ``plain``
-        is taken for the common signature (no kernel here)."""
+    def forward(self, image_input=None, metadata_input=None) -> torch.Tensor:
+        """Logits (N, 1); the images' type is the compute type."""
         check_inputs("mm_cnn", image_input, metadata_input)
         x = self.conv_layers(image_input)
         meta = self.metadata_branch(metadata_input, image_input.dtype)
@@ -109,7 +107,6 @@ class UmCnn(nn.Module):
         self.head = ImageHead(cnn_feature_size(config), config["fc1_neurons"],
                               config["fc2_neurons"], config["dropout"], "relu")
 
-    def forward(self, image_input=None, metadata_input=None,
-                plain: bool = False) -> torch.Tensor:
+    def forward(self, image_input=None, metadata_input=None) -> torch.Tensor:
         check_inputs("um_cnn", image_input, metadata_input)
         return self.head(self.conv_layers(image_input))

@@ -45,8 +45,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..ops.convnext_block import convnext_block_fused, convnext_block_reference
-from ..ops.ln_mlp import fused_ln_mlp, ln_mlp_reference
+from ..ops.convnext_block import convnext_block_fused
+from ..ops.ln_mlp import fused_ln_mlp
 from .common import (
     CombinedHead,
     Conv2d,
@@ -119,11 +119,9 @@ class ConvNeXtBlock(nn.Module):
                 self.norm.bias, self.mlp.fc1.weight, self.mlp.fc1.bias,
                 self.mlp.fc2.weight, self.mlp.fc2.bias, self.gamma)
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        """x (B, H, W, C).  ``plain=True`` runs the plain PyTorch version on
-        any device (for holding the kernel against it)."""
-        fn = convnext_block_reference if plain else convnext_block_fused
-        return fn(x, *self.block_params())
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, H, W, C)."""
+        return convnext_block_fused(x, *self.block_params())
 
 
 class InceptionMixer(nn.Module):
@@ -157,14 +155,12 @@ class InceptionNeXtBlock(nn.Module):
         self.mlp = Mlp(dim, int(mlp_ratio * dim))
         self.gamma = nn.Parameter(torch.full((dim,), float(ls_init_value)))
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        """x (B, H, W, C).  ``plain=True`` runs the LN → MLP half in its
-        plain PyTorch version on any device."""
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, H, W, C)."""
         c = x.shape[-1]
-        fn = ln_mlp_reference if plain else fused_ln_mlp
-        out = fn(self.mixer(x).reshape(-1, c), x.reshape(-1, c), self.norm.weight,
-                 self.norm.bias, self.mlp.fc1.weight, self.mlp.fc1.bias,
-                 self.mlp.fc2.weight, self.mlp.fc2.bias, self.gamma)
+        out = fused_ln_mlp(self.mixer(x).reshape(-1, c), x.reshape(-1, c), self.norm.weight,
+                           self.norm.bias, self.mlp.fc1.weight, self.mlp.fc1.bias,
+                           self.mlp.fc2.weight, self.mlp.fc2.bias, self.gamma)
         return out.reshape(x.shape)
 
 
@@ -180,11 +176,11 @@ class ConvNeXtStage(nn.Module):
             InceptionNeXtBlock(dim, mlp_ratio) if token_mixer == "inception"
             else ConvNeXtBlock(dim) for _ in range(depth))
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.downsample is not None:
             x = conv_nhwc(self.downsample[1], self.downsample[0](x))
         for block in self.blocks:
-            x = block(x, plain)
+            x = block(x)
         return x
 
 
@@ -213,10 +209,10 @@ class ConvNeXtBackbone(nn.Module):
         self.head = nn.Sequential(GlobalAvgPool(), LayerNorm(dims[-1], eps=1e-6),
                                   nn.Flatten()) if head_norm else nn.Flatten()
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.stem[1](conv_nhwc(self.stem[0], x))
         for stage in self.stages:
-            x = stage(x, plain)
+            x = stage(x)
         return self.head(x)
 
 
@@ -245,10 +241,9 @@ class ConvNeXtClassifier(nn.Module):
                                  config["dropout"], "gelu"):
             self.convnext.head.append(layer)
 
-    def forward(self, image_input=None, metadata_input=None,
-                plain: bool = False) -> torch.Tensor:
+    def forward(self, image_input=None, metadata_input=None) -> torch.Tensor:
         check_inputs("ConvNeXt", image_input, metadata_input)
-        return self.convnext(image_input, plain)
+        return self.convnext(image_input)
 
 
 class MmConvNeXt(nn.Module):
@@ -269,12 +264,11 @@ class MmConvNeXt(nn.Module):
             n_img + config["meta_fc2_neurons"], config["comb_fc1_neurons"],
             config["comb_fc2_neurons"], config["comb_dropout"])
 
-    def forward(self, image_input=None, metadata_input=None,
-                plain: bool = False) -> torch.Tensor:
+    def forward(self, image_input=None, metadata_input=None) -> torch.Tensor:
         """Logits (N, 1) from NHWC images and (N, n_meta) metadata.  The
         images' type is the compute type: float32 parameters are cast to it
         at use, and the metadata BatchNorm's float32 output too."""
         check_inputs("mm_ConvNeXt", image_input, metadata_input)
-        x = self.convnext_backbone(image_input, plain)
+        x = self.convnext_backbone(image_input)
         meta = self.metadata_branch(metadata_input, image_input.dtype)
         return self.combined_head(torch.cat([x, meta], dim=1))

@@ -71,12 +71,12 @@ class ImageFeatures(nn.Module):
         else:
             raise ValueError(f"Model {self.kind} not supported as fusion image branch")
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.kind == "um_cnn":
             return self.conv_layers(x)
         if self.kind == "MaxViT":
             return self.maxvit(resize_bilinear(x, self.image_size))
-        return self.convnext(x, plain)
+        return self.convnext(x)
 
 
 class MetaFeatures(nn.Module):
@@ -106,10 +106,9 @@ class FrozenFusion(nn.Module):
             cfg["comb_fc1_neurons"], cfg["comb_fc2_neurons"], cfg["comb_dropout"],
             "relu")
 
-    def forward(self, image_input=None, metadata_input=None,
-                plain: bool = False) -> torch.Tensor:
+    def forward(self, image_input=None, metadata_input=None) -> torch.Tensor:
         check_inputs("frozen_fusion", image_input, metadata_input)
-        img = self.image_branch(image_input, plain)
+        img = self.image_branch(image_input)
         meta = self.meta_branch(metadata_input, image_input.dtype)
         return self.combined_head(torch.cat([img, meta], dim=1))
 

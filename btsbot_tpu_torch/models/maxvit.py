@@ -41,8 +41,8 @@ bfloat16 (``models.common.gelu``); attention scores accumulated in float32
 gathered and cast to the compute type and added in float32, softmax in
 float32 then cast back; BatchNorm in float32 inside; the MLP half's as
 ``ln_mlp_reference`` rounds (each product in the compute type before its
-bias).  ``plain`` (taken for the other models' signature) changes nothing
-here: the CPU runs the plain versions, the card the kernels.
+bias).  Each op picks by device: the CPU runs the plain versions, the card
+the kernels.
 
 Module and parameter names are the reference's (timm maxxvit under
 ``maxvit.`` / ``maxvit_backbone.``), so the JAX exporter's state dicts and
@@ -336,8 +336,7 @@ class MaxViTClassifier(nn.Module):
             feature_size(config), config["fc1_neurons"], config["fc2_neurons"],
             config["dropout"], "gelu"))
 
-    def forward(self, image_input=None, metadata_input=None,
-                plain: bool = False) -> torch.Tensor:
+    def forward(self, image_input=None, metadata_input=None) -> torch.Tensor:
         check_inputs("MaxViT", image_input, metadata_input)
         return self.maxvit(resize_bilinear(image_input, self.image_size))
 
@@ -356,8 +355,7 @@ class MmMaxViT(nn.Module):
             feature_size(config) + config["meta_fc2_neurons"], config["comb_fc1_neurons"],
             config["comb_fc2_neurons"], config["comb_dropout"])
 
-    def forward(self, image_input=None, metadata_input=None,
-                plain: bool = False) -> torch.Tensor:
+    def forward(self, image_input=None, metadata_input=None) -> torch.Tensor:
         """Logits (N, 1); the images' type is the compute type."""
         check_inputs("mm_MaxViT", image_input, metadata_input)
         x = self.maxvit_backbone(resize_bilinear(image_input, self.image_size))

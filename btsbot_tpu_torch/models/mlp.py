@@ -21,7 +21,6 @@ class UmNN(nn.Module):
             config["meta_fc2_neurons"], config["meta_dropout"], "relu")
         self.network.append(Linear(config["meta_fc2_neurons"], 1))
 
-    def forward(self, image_input=None, metadata_input=None,
-                plain: bool = False) -> torch.Tensor:
+    def forward(self, image_input=None, metadata_input=None) -> torch.Tensor:
         check_inputs("um_nn", image_input, metadata_input)
         return self.network(metadata_input)

@@ -289,14 +289,6 @@ def workspace_args(ws) -> list:
     return [] if ws is None else [ws.data_ptr(), ws.numel() * ws.element_size()]
 
 
-def count_launch(wrapper, variant: str, c: int, hidden: int) -> None:
-    """One launch of ``wrapper``'s kernel ``variant`` at widths (c, hidden):
-    its total ``launches`` and its ``launches_by_width[(variant, c, hidden)]``."""
-    wrapper.launches += 1
-    key = (variant, c, hidden)
-    wrapper.launches_by_width[key] = wrapper.launches_by_width.get(key, 0) + 1
-
-
 def kernel_operands(x, params, name: str) -> list:
     """Validate a kernel's input tensor and bring its parameters to its type;
     returns the operands, x first.  Raises on what the kernels do not take:

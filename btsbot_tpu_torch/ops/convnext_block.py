@@ -13,10 +13,9 @@ Port of btsbot_tpu/ops/pallas_convnext.py:
   products as three TF32 tensor-core products, weights split into a
   workspace the wrapper allocates) (``_build.kernel_variant``, by width and
   type).
-  On a CUDA tensor it launches one of them (counted in
-  ``convnext_block_fused.launches`` and ``.launches_by_width``) or raises;
-  only a CPU tensor takes the plain version.  Its backward recomputes the plain
-  version (pallas_convnext.py:187-190);
+  On a CUDA tensor it launches one of them or raises; only a CPU tensor
+  takes the plain version.  Its backward recomputes the plain version
+  (pallas_convnext.py:187-190);
 * ``block_params_apply`` — the block from reference-named parameters.
 
 The kernel adds the depthwise bias in float32 before the LayerNorm, as the
@@ -80,7 +79,6 @@ def _launch_block(x, dw_w, dw_b, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, gamma):
                  b, hgt, wid, c, hidden, *_build.type_args(variant),
                  _build.current_stream(x))
     _build.check(err, f"convnext_block_fused ({variant}, C={c})")
-    _build.count_launch(convnext_block_fused, variant, c, hidden)
     return out
 
 
@@ -105,9 +103,6 @@ def convnext_block_fused(x, dw_w, dw_b, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b,
         return convnext_block_reference(*args)
     return _FusedBlock.apply(*args)
 
-
-convnext_block_fused.launches = 0
-convnext_block_fused.launches_by_width = {}  # (variant, C, hidden) -> launches
 
 BLOCK_PARAM_NAMES = ("conv_dw.weight", "conv_dw.bias", "norm.weight", "norm.bias",
                      "mlp.fc1.weight", "mlp.fc1.bias", "mlp.fc2.weight",

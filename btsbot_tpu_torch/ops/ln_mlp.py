@@ -10,12 +10,10 @@ Port of btsbot_tpu/ops/pallas_mlp.py.  Three things live here:
   ``csrc/ln_mlp.cu`` (tuned at C = 64 / 128 / 256 / 512, "wgmma_any" at
   every other width), float32 in ``csrc/tf32x3.cu`` at every width
   ("tf32x3": three TF32 tensor-core products per product;
-  ``_build.kernel_variant``, by width and type).  On a CUDA tensor it launches one of them
-  (and counts the launch in ``fused_ln_mlp.launches``,
-  ``.launches_by_width`` and, while a profiler records, the counter
-  ``fused_ln_mlp.launches``) or raises; only a CPU tensor takes the plain
-  version.  Its backward recomputes the plain version, as the JAX custom VJP
-  does (pallas_mlp.py:128-131).  Every ``inceptionnext_*`` block calls it
+  ``_build.kernel_variant``, by width and type).  On a CUDA tensor it
+  launches one of them or raises; only a CPU tensor takes the plain
+  version.  Its backward recomputes the plain version, as the JAX custom
+  VJP does (pallas_mlp.py:128-131).  Every ``inceptionnext_*`` block calls it
   (models.convnext.InceptionNeXtBlock), at hidden width ratio·C, and every
   MaxViT attention block's MLP half (models.maxvit.PartitionAttention: γ = 1,
   LN eps 1e-5, an argument of the kernels);
@@ -39,7 +37,6 @@ import torch.nn.functional as F
 
 from ..core.config import normalize_config
 from ..models.common import gelu
-from ..utils import profiling
 from . import _build
 from ._autograd import recompute_backward
 
@@ -84,8 +81,6 @@ def _launch_ln_mlp(h, shortcut, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, gamma,
     err = launch(*[t.data_ptr() for t in ops], out.data_ptr(), *_build.workspace_args(ws),
                  m, c, hidden, eps, *_build.type_args(variant), _build.current_stream(h))
     _build.check(err, f"fused_ln_mlp ({variant}, C={c}, hidden={hidden})")
-    _build.count_launch(fused_ln_mlp, variant, c, hidden)
-    profiling.count("fused_ln_mlp.launches")
     return out
 
 
@@ -114,10 +109,6 @@ def fused_ln_mlp(h, shortcut, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, gamma,
     if h.device.type == "cpu":
         return ln_mlp_reference(*args, eps=eps)
     return _FusedLnMlp.apply(*args, eps)
-
-
-fused_ln_mlp.launches = 0
-fused_ln_mlp.launches_by_width = {}  # (variant, C, hidden) -> launches
 
 
 # --------------------- fast ConvNeXt forward (serving) ---------------------

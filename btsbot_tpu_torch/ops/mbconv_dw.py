@@ -11,11 +11,9 @@ GELU on an NHWC map — in one launch.
   counterpart: the JAX package leaves the MBConv to XLA).  On a CUDA tensor
   it launches the kernel (bfloat16 or float32, rounded where the plain
   version rounds; BatchNorm folded into a float32 scale and shift in the
-  kernel, which reads the taps and the BatchNorm vectors in place),
-  counting ``mbconv_dw.launches`` and, while a profiler records,
-  the counter ``mbconv_dw.launches``, or raises; only a CPU tensor takes the
-  plain version.  Its backward recomputes the plain version, as
-  ``fused_ln_mlp``'s does.
+  kernel, which reads the taps and the BatchNorm vectors in place) or
+  raises; only a CPU tensor takes the plain version.  Its backward
+  recomputes the plain version, as ``fused_ln_mlp``'s does.
 
 The map is (B, H, W, C) NHWC with C a multiple of 8; the output (B,
 ⌈H / s⌉, ⌈W / s⌉, C) at stride s = 1 or 2.  ``norm1`` / ``norm2`` are each
@@ -29,7 +27,6 @@ import torch
 import torch.nn.functional as F
 
 from ..models.common import batch_norm_nhwc, gelu
-from ..utils import profiling
 from . import _build
 from ._autograd import recompute_backward
 
@@ -71,8 +68,6 @@ def _launch_mbconv_dw(h, taps, norm1, norm2, stride: int, eps):
         *eps, int(h.dtype == torch.bfloat16), int(kind == torch.bfloat16),
         _build.current_stream(h))
     _build.check(err, f"mbconv_dw (stride {stride}, {tuple(h.shape)}, {h.dtype})")
-    mbconv_dw.launches += 1
-    profiling.count("mbconv_dw.launches")
     return out
 
 
@@ -102,6 +97,3 @@ def mbconv_dw(h: torch.Tensor, norm1, taps: torch.Tensor, norm2, stride: int,
     if h.device.type == "cpu":
         return mbconv_dw_reference(h, norm1, taps, norm2, stride, eps)
     return _MBConvDw.apply(h, taps, *norm1, *norm2, stride, eps)
-
-
-mbconv_dw.launches = 0

@@ -13,10 +13,10 @@ from the natural-order qkv map.
 * ``partition_attention`` — the wrapper of ``csrc/partition_attention.cu``
   (no Pallas counterpart: the JAX package leaves this to XLA).  On a CUDA
   tensor it launches the kernel (bfloat16 on the tensor cores, float32 on
-  the CUDA cores), counting ``partition_attention.launches`` and, while a
-  profiler records, the counters ``partition_attention.launches`` and
-  ``partition_attention.bytes`` (qkv read once, the output written once,
-  the table), or raises; only a CPU tensor takes the plain version.  Its
+  the CUDA cores) or raises, and while a profiler records adds the bytes
+  a launch moves (qkv read once, the output written once, the table) to
+  the counter ``partition_attention.bytes``; only a CPU tensor takes the
+  plain version.  Its
   backward recomputes the plain version, as ``fused_ln_mlp``'s does.
 
 The map is (B, H, W, 3C) NHWC with q, k, v each C = heads × 32 channels
@@ -134,8 +134,6 @@ def _launch_partition_attention(qkv, table, window: int, grid: bool):
         _build.current_stream(qkv))
     _build.check(err, f"partition_attention ({'grid' if grid else 'window'}, P={window}, "
                       f"{tuple(qkv.shape)})")
-    partition_attention.launches += 1
-    profiling.count("partition_attention.launches")
     profiling.count("partition_attention.bytes", attention_bytes(qkv, table))
     return out
 
@@ -163,6 +161,3 @@ def partition_attention(qkv: torch.Tensor, table: torch.Tensor, window: int,
     if qkv.device.type == "cpu":
         return partition_attention_reference(qkv, table, window, grid)
     return _PartitionAttention.apply(qkv, table, window, grid)
-
-
-partition_attention.launches = 0

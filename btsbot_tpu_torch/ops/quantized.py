@@ -132,22 +132,17 @@ def _launch_int8_dwconv(x, s_x: float, wq, w_scale, bias):
         x.data_ptr(), wq.data_ptr(), w_scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
         float(s_x), b, h, w, c, int(x.dtype == torch.bfloat16), _build.current_stream(x))
     _build.check(err, "btsbot_int8_dwconv")
-    int8_dwconv.launches += 1
     return out
 
 
 def int8_dwconv(x, s_x, wq, w_scale, bias):
     """The quantized block's depthwise step (JAX quantized.py:199-203) on x
     (B, H, W, C) in float32 or bfloat16, output in x's type: the CUDA kernel
-    on a CUDA tensor (``int8_dwconv.launches`` counts its launches), its
-    plain version on a CPU tensor.  The calibration's; the forward runs the
+    on a CUDA tensor, its plain version on a CPU tensor.  The calibration's; the forward runs the
     whole block in ``int8_block``."""
     if x.is_cuda:
         return _launch_int8_dwconv(x, float(s_x), wq, w_scale, bias)
     return int8_dwconv_reference(x, s_x, wq, w_scale, bias)
-
-
-int8_dwconv.launches = 0
 
 
 # ------------------------------- int8 GEMMs -------------------------------
@@ -303,15 +298,14 @@ def _launch_int8_block(x, s_x: float, s_h: float, s_g: float, dw, dw_b, ln_w, ln
         float(s_x), float(s_h), float(s_g), b, h, w, c, hidden, w1.shape[1],
         int(x.dtype == torch.bfloat16), _build.current_stream(x))
     _build.check(err, "btsbot_int8_block")
-    int8_block.launches += 1
     return (out, q_h, q_g) if debug else out
 
 
 def int8_block(x, s_x, s_h, s_g, dw, dw_b, ln_w, ln_b, fc1, b1, fc2, b2, gamma, debug=False):
     """One quantized ConvNeXt block (JAX quantized.py:194-218) on x (B, H, W,
     C) in float32 or bfloat16, output in x's type: the CUDA kernel
-    ``csrc/int8_block.cu`` on a CUDA tensor (``int8_block.launches`` counts
-    its launches), ``int8_block_reference`` on a CPU tensor.  ``s_x``,
+    ``csrc/int8_block.cu`` on a CUDA tensor, ``int8_block_reference`` on a
+    CPU tensor.  ``s_x``,
     ``s_h``, ``s_g``: the block's activation scales as Python floats;
     ``dw``, ``fc1``, ``fc2``: (int8 weight in the forward's layout, float32
     scales).  With ``debug``: (out, q_h (M, C), q_g (M, hidden))."""
@@ -320,9 +314,6 @@ def int8_block(x, s_x, s_h, s_g, dw, dw_b, ln_w, ln_b, fc1, b1, fc2, b2, gamma, 
                                   gamma, debug=debug)
     return int8_block_reference(x, s_x, s_h, s_g, dw, dw_b, ln_w, ln_b, fc1, b1, fc2, b2, gamma,
                                 debug=debug)
-
-
-int8_block.launches = 0
 
 
 # ------------------------------ calibration ------------------------------

@@ -240,6 +240,7 @@ without CUDA, and a directory without the port beside this script.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import csv
 import gzip
@@ -369,6 +370,7 @@ def phase_setup(state: dict) -> None:
     t0 = time.perf_counter()
     _build.library()
     secs = time.perf_counter() - t0
+    _launches()  # from here on every launch is counted (the kernels line's widths: the run's)
     info = _build.build_info
     state["ptxas"] = info.get("ptxas", "")  # a later build() call finds the library and clears it
     print(f"kernels built in {secs:.1f} s (compiled={info.get('compiled')}) "
@@ -675,13 +677,13 @@ def _plain_scores(model, triplets, metadata, batch: int):
     ladder = _bucket_ladder(batch)
     out = []
     n = len(triplets if triplets is not None else metadata)
-    with torch.inference_mode():
+    with torch.inference_mode(), _plain_ops():
         for s in range(0, n, batch):
             e = min(s + batch, n)
             bs = _pick_bucket(ladder, e - s)
             img, meta = (None if x is None else _padded_on(x[s:e], bs, DEVICE)
                          for x in (triplets, metadata))
-            z = model(img, meta, plain=True).reshape(-1).float()
+            z = model(img, meta).reshape(-1).float()
             out.append(torch.sigmoid(z)[:e - s].cpu().numpy())
     return np.concatenate(out)
 
@@ -763,8 +765,7 @@ def phase_main_path(state: dict) -> None:
     torch.cuda.synchronize()
 
     # ---- the counted run of the main path
-    _zero_kernel_counts()
-    by_variant = _variant_launches()
+    mark = _launches(by=4)
     timings, scores = {}, {}
     for name, sc in scorers.items():
         t0 = time.perf_counter()
@@ -775,13 +776,13 @@ def phase_main_path(state: dict) -> None:
     s_stream, d_stream = stream(packets)
     timings["AlertStreamScorer bf16"] = (len(packets), time.perf_counter() - t0)
     torch.cuda.synchronize()
-    launches = _kernel_counts()
+    launches = _launches(mark)
     state["launches_main"] = launches
     batches = 2 * (_n_batches(n_big) + _n_batches(len(ex_trips))) + _n_batches(len(packets))
     print(f"  launches: {launches} over {batches} batches", flush=True)
     check(launches["convnext_block_fused"] == 12 * batches,
           f"12 block-kernel launches per batch ({12 * batches})")
-    by_variant = _variant_diff(by_variant)
+    by_variant = _launches(mark, by=2)
     f32_batches = _n_batches(n_big) + _n_batches(len(ex_trips))
     print(f"  launches by kernel and variant: {by_variant}", flush=True)
     check(by_variant == {("convnext_block_fused", "tf32x3"): 12 * f32_batches,
@@ -842,12 +843,11 @@ def phase_fast_path(state: dict) -> None:
     with torch.inference_mode():
         want = model(trips, meta).reshape(-1)
         torch.cuda.synchronize()
-        _zero_kernel_counts()
-        by_variant = _variant_launches()
+        mark = _launches(by=4)
         got = fast_mm_convnext_logits(weights, trips, meta, FLAGSHIP_CONFIG)
         torch.cuda.synchronize()
-        launches = _kernel_counts()
-        by_variant = _variant_diff(by_variant)
+        launches = _launches(mark)
+        by_variant = _launches(mark, by=2)
     state["launches_fast"] = launches
     print(f"  launches: {launches}", flush=True)
     check(launches["fused_ln_mlp"] == 12
@@ -978,20 +978,19 @@ def _fresh_state(config, weights):
                                       steps_per_epoch=TRAIN_ALERTS // TRAIN_BATCH)
 
 
-def _one_step(config, weights, batch, plain: bool = False):
+def _one_step(config, weights, batch):
     """One train step of a fresh model holding ``weights`` on ``batch``;
     (loss, {name: grad}, block-kernel launches)."""
     import torch
     from btsbot_tpu_torch.engine.steps import make_train_step
-    from btsbot_tpu_torch.ops.convnext_block import convnext_block_fused
 
     config, st = _fresh_state(config, weights)
     torch.cuda.synchronize()
-    convnext_block_fused.launches = 0
-    m = make_train_step(config, plain=plain)(st, *batch)
+    mark = _launches(by=4)
+    m = make_train_step(config)(st, *batch)
     torch.cuda.synchronize()
     grads = {n: p.grad.detach().clone() for n, p in st.model.named_parameters()}
-    return m["loss"].item(), grads, convnext_block_fused.launches
+    return m["loss"].item(), grads, _launches(mark)["convnext_block_fused"]
 
 
 def _step_split(config, weights, batch, iters: int = 10):
@@ -1095,7 +1094,6 @@ def phase_train(state: dict) -> None:
     from btsbot_tpu_torch.engine.eval import predict_dataset
     from btsbot_tpu_torch.engine.steps import make_train_step
     from btsbot_tpu_torch.models.factory import build_model
-    from btsbot_tpu_torch.ops.convnext_block import convnext_block_fused
 
     weights = state["weights"]
     tmp, data_dir = _smoke_split(state)
@@ -1112,7 +1110,8 @@ def phase_train(state: dict) -> None:
     # ---- one float32 step through the kernel and through the plain blocks
     batch = batch_of(TRAIN_BATCH)
     loss_k, grads_k, n_k = _one_step(config, weights, batch)
-    loss_p, grads_p, n_p = _one_step(config, weights, batch, plain=True)
+    with _plain_ops():
+        loss_p, grads_p, n_p = _one_step(config, weights, batch)
     rel = abs(loss_k - loss_p) / abs(loss_p)
     worst, worst_name = max(
         ((grads_k[n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30), n)
@@ -1144,12 +1143,12 @@ def phase_train(state: dict) -> None:
         with open(path, "w") as f:
             json.dump(_train_config(epochs=epochs), f)
         torch.cuda.synchronize()
-        convnext_block_fused.launches = 0
+        mark = _launches(by=4)
         t0 = time.perf_counter()
         result = train_cli([path] + cli_args + extra)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        launches = convnext_block_fused.launches
+        launches = _launches(mark)["convnext_block_fused"]
         ran = epochs - (2 if extra else 0)
         want = 12 * ran * (steps + evals)
         print(f"  cli.train {' '.join(extra) or '(fresh)'}: {ran} epoch(s), "
@@ -1335,39 +1334,91 @@ def _conv_work(config) -> list:
             for px, cin, cout in shapes]
 
 
-def _kernel_counts() -> dict:
-    from btsbot_tpu_torch.ops.convnext_block import convnext_block_fused
-    from btsbot_tpu_torch.ops.ln_mlp import fused_ln_mlp
-    return {"convnext_block_fused": convnext_block_fused.launches,
-            "fused_ln_mlp": fused_ln_mlp.launches}
+# the wrappers of the kernels without variants, by their C entry points
+KERNEL_ENTRIES = {"btsbot_partition_attention": "partition_attention",
+                  "btsbot_mbconv_dw": "mbconv_dw", "btsbot_int8_block": "int8_block",
+                  "btsbot_int8_dwconv": "int8_dwconv"}
 
 
-def _zero_kernel_counts() -> None:
-    """Both launch counts to 0 (``launches_by_width`` keeps the whole run's
-    launches by width for the kernels line)."""
-    from btsbot_tpu_torch.ops.convnext_block import convnext_block_fused
-    from btsbot_tpu_torch.ops.ln_mlp import fused_ln_mlp
-    convnext_block_fused.launches = 0
-    fused_ln_mlp.launches = 0
+class CountingLibrary:
+    """Stands in for ``ops._build.library`` and counts the kernels'
+    launches: called, it returns itself; an entry point looked up on it is
+    the loaded library's, and each launch of a kernel that returns success
+    adds one to ``launches`` under (wrapper, variant, C, hidden) (variant, C
+    and hidden for the two ConvNeXt kernels, else None).  ``load``, the
+    loader it stands in for, runs at the first lookup, so where the wrappers
+    take their plain versions nothing is built or counted."""
+
+    def __init__(self, load):
+        self.load = load
+        self.launches = collections.Counter()
+
+    def __call__(self):
+        return self
+
+    def __getattr__(self, name):
+        from btsbot_tpu_torch.ops import _build
+
+        fn = getattr(self.load(), name)
+        widths = {entry: (wrapper, variant)
+                  for op, wrapper in (("convnext_block", "convnext_block_fused"),
+                                      ("ln_mlp", "fused_ln_mlp"))
+                  for variant, entry in _build.ENTRY_POINTS[op].items()}
+        if name not in widths and name not in KERNEL_ENTRIES:
+            return fn  # a size query, not a launch
+
+        def launch(*args):
+            err = fn(*args)
+            if err == 0:
+                if name in KERNEL_ENTRIES:
+                    key = (KERNEL_ENTRIES[name], None, None, None)
+                else:
+                    wrapper, variant = widths[name]
+                    # ..., C, hidden, [LN eps,] [is_bf16: not tf32x3's,] stream
+                    end = -1 - (wrapper == "fused_ln_mlp") - (variant != "tf32x3")
+                    key = (wrapper, variant, *args[end - 2:end])
+                self.launches[key] += 1
+            return err
+        return launch
 
 
-def _variant_launches() -> dict:
-    """Launches so far of each (kernel, variant) in this run
-    (``launches_by_width`` is never reset): the difference over a stretch
-    says which kernels ran it."""
-    from btsbot_tpu_torch.ops.convnext_block import convnext_block_fused
-    from btsbot_tpu_torch.ops.ln_mlp import fused_ln_mlp
-    out: dict = {}
-    for name, fn in (("convnext_block_fused", convnext_block_fused),
-                     ("fused_ln_mlp", fused_ln_mlp)):
-        for (variant, _, _), n in fn.launches_by_width.items():
-            out[(name, variant)] = out.get((name, variant), 0) + n
+def _launches(since: dict | None = None, by: int = 1,
+              kernels=("convnext_block_fused", "fused_ln_mlp")) -> dict:
+    """The kernel launches of this run (the first call puts a
+    ``CountingLibrary`` in ``ops._build.library``'s place; ``phase_setup``
+    makes that call), summed by the first ``by`` of their (wrapper, variant,
+    C, hidden); with ``since``, an earlier return at ``by`` = 4, only those
+    after it.  At ``by`` = 1 the keys are ``kernels``, 0 where one did not
+    launch."""
+    from btsbot_tpu_torch.ops import _build
+
+    if not isinstance(_build.library, CountingLibrary):
+        _build.library = CountingLibrary(_build.library)
+    counts = _build.library.launches - collections.Counter(since or {})
+    out = dict.fromkeys(kernels, 0) if by == 1 else {}
+    for key, n in counts.items():
+        k = key[0] if by == 1 else key[:by]
+        if by > 1 or k in out:
+            out[k] = out.get(k, 0) + n
     return out
 
 
-def _variant_diff(before: dict) -> dict:
-    after = _variant_launches()
-    return {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+@contextlib.contextmanager
+def _plain_ops():
+    """The models' kernel wrappers replaced by their plain versions for the
+    block's length (a distilled teacher's and a fusion's branch too): the
+    reference the kernel path is held to on the same device."""
+    from btsbot_tpu_torch.models import convnext, maxvit
+    from btsbot_tpu_torch.ops.convnext_block import convnext_block_reference
+    from btsbot_tpu_torch.ops.ln_mlp import ln_mlp_reference
+    from btsbot_tpu_torch.ops.mbconv_dw import mbconv_dw_reference
+    from btsbot_tpu_torch.ops.partition_attention import partition_attention_reference
+
+    with _patched(convnext, convnext_block_fused=convnext_block_reference,
+                  fused_ln_mlp=ln_mlp_reference), \
+            _patched(maxvit, fused_ln_mlp=ln_mlp_reference, mbconv_dw=mbconv_dw_reference,
+                     partition_attention=partition_attention_reference):
+        yield
 
 
 def _serve_family(name, config, trips, meta, per_batch: int = 12) -> dict:
@@ -1392,10 +1443,10 @@ def _serve_family(name, config, trips, meta, per_batch: int = 12) -> dict:
         sc(*(None if x is None else x[:BATCH] for x in (trips, meta)))
         sc(*(None if x is None else x[BATCH:] for x in (trips, meta)))
     torch.cuda.synchronize()
-    _zero_kernel_counts()
+    mark = _launches(by=4)
     scores = {k: sc(trips, meta) for k, sc in scorers.items()}
     torch.cuda.synchronize()
-    counts = _kernel_counts()
+    counts = _launches(mark)
     batches = 2 * _n_batches(FAMILY_ALERTS)
     want = {k: per_batch * batches if KERNEL_OF.get(name) == k else 0 for k in counts}
     print(f"  {name}: launches {counts} over {batches} batches", flush=True)
@@ -1500,13 +1551,13 @@ def _train_family(config, name, data_dir, out_root, run_name,
     with open(path, "w") as f:
         json.dump(config, f)
     torch.cuda.synchronize()
-    _zero_kernel_counts()
+    mark = _launches(by=4)
     t0 = time.perf_counter()
     result = train_cli([path, "--data-dir", data_dir, "--out-root", out_root,
                         "--run-name", run_name, "--no-figure", "--device", DEVICE])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    counts = _kernel_counts()
+    counts = _launches(mark)
     hist = result["history"]
     check(len(hist["train_loss"]) == config["epochs"] and all(
         np.all(np.isfinite(hist[k])) for k in ("train_loss", "val_loss")),
@@ -2103,27 +2154,23 @@ def phase_maxvit(state: dict) -> None:
         np.float32)
     meta = np.random.default_rng(32).normal(size=(MAXVIT_ALERTS, len(META_COLS))).astype(
         np.float32)
-    from btsbot_tpu_torch.ops.mbconv_dw import mbconv_dw
-    from btsbot_tpu_torch.ops.partition_attention import partition_attention
+    maxvit_kernels = ("convnext_block_fused", "fused_ln_mlp", "partition_attention",
+                      "mbconv_dw")
 
     state["maxvit_attention"] = _attention_kernel_rows(state)
     state["maxvit_mbconv"] = _mbconv_kernel_rows(state)
-    _zero_kernel_counts()
-    partition_attention.launches = mbconv_dw.launches = 0
+    mark = _launches(by=4)
     served = {name: _serve_maxvit(name, configs[name], trips, meta, state)
               for name in ("mm_MaxViT", "MaxViT")}
     _stream_family("mm_MaxViT", configs["mm_MaxViT"], served["mm_MaxViT"]["weights"],
                    served["mm_MaxViT"]["scorer_bf16"], batch=MAXVIT_BATCH["bf16"])
-    counts = _kernel_counts()
-    check(counts["convnext_block_fused"] == 0 and counts["fused_ln_mlp"] > 0
-          and counts["fused_ln_mlp"] == partition_attention.launches
-          and counts["fused_ln_mlp"] % 22 == 0
-          and 2 * mbconv_dw.launches == counts["fused_ln_mlp"],
+    serving = _launches(mark, kernels=maxvit_kernels)
+    check(serving["convnext_block_fused"] == 0 and serving["fused_ln_mlp"] > 0
+          and serving["fused_ln_mlp"] == serving["partition_attention"]
+          and serving["fused_ln_mlp"] % 22 == 0
+          and 2 * serving["mbconv_dw"] == serving["fused_ln_mlp"],
           f"MaxViT serving launches no block kernel and 22 partition_attention, 22 "
-          f"fused_ln_mlp and 11 mbconv_dw launches a forward ({counts}, partition_attention "
-          f"{partition_attention.launches}, mbconv_dw {mbconv_dw.launches})")
-    serving = {"partition_attention": partition_attention.launches,
-               "mbconv_dw": mbconv_dw.launches}
+          f"fused_ln_mlp and 11 mbconv_dw launches a forward ({serving})")
 
     # ---- training
     tmp, _ = _smoke_split(state)
@@ -2202,10 +2249,9 @@ def phase_maxvit(state: dict) -> None:
                        for name, sv in served.items()}
     state["maxvit"]["train"] = {"step_ms": step_ms, "cli_s": mm_secs,
                                 "fusion_cli_s": fusion_secs, "rate160": rate160}
-    state["maxvit_launches"] = {
-        "partition_attention": {"serving": serving["partition_attention"],
-                                "total": partition_attention.launches},
-        "mbconv_dw": {"serving": serving["mbconv_dw"], "total": mbconv_dw.launches}}
+    total = _launches(mark, kernels=maxvit_kernels)
+    state["maxvit_launches"] = {k: {"serving": serving[k], "total": total[k]}
+                                for k in ("partition_attention", "mbconv_dw")}
 
 
 # ------------------------------ phase 9 ------------------------------
@@ -2436,11 +2482,12 @@ def _width_model(kind: str, train: bool) -> None:
         size=(n, len(META_COLS))).astype(np.float32)).to(DEVICE)
     with torch.inference_mode():
         torch.cuda.synchronize()
-        _zero_kernel_counts()
+        mark = _launches(by=4)
         got = model(images, meta).reshape(-1)
         torch.cuda.synchronize()
-        counts = _kernel_counts()
-        want = model(images, meta, plain=True).reshape(-1)
+        counts = _launches(mark)
+        with _plain_ops():
+            want = model(images, meta).reshape(-1)
     dl = (got - want).abs().max().item()
     ds = (torch.sigmoid(got) - torch.sigmoid(want)).abs().max().item()
     print(f"  {kind} f32 forward, batch {n}: launches {counts}; logits in "
@@ -2458,7 +2505,8 @@ def _width_model(kind: str, train: bool) -> None:
     batch = (images, meta, labels, 2.0)
     weights = model.state_dict()
     loss_k, grads_k, n_k = _one_step(config, weights, batch)
-    loss_p, grads_p, n_p = _one_step(config, weights, batch, plain=True)
+    with _plain_ops():
+        loss_p, grads_p, n_p = _one_step(config, weights, batch)
     rel = abs(loss_k - loss_p) / abs(loss_p)
     worst, worst_name = max(
         ((grads_k[k] - g).abs().max().item() / max(g.abs().max().item(), 1e-30), k)
@@ -2547,15 +2595,14 @@ def _serve_cli(args: list, out: str) -> tuple:
     import io
     import torch
     from btsbot_tpu_torch.cli.serve import main as serve_main
-    from btsbot_tpu_torch.ops.convnext_block import convnext_block_fused
 
     err = io.StringIO()
     torch.cuda.synchronize()
-    convnext_block_fused.launches = 0
+    mark = _launches(by=4)
     with contextlib.redirect_stderr(err):
         stats = serve_main(args + ["--out", out, "--device", DEVICE])
     torch.cuda.synchronize()
-    launches = convnext_block_fused.launches
+    launches = _launches(mark)["convnext_block_fused"]
     with open(out) as f:
         rows = [json.loads(line) for line in f]
     return stats, rows, err.getvalue(), launches
@@ -2680,11 +2727,11 @@ def phase_daemon(state: dict) -> None:
 
     got = []
     torch.cuda.synchronize()
-    _zero_kernel_counts()
+    mark = _launches(by=4)
     consumer = AlertStreamConsumer(scorer, trickle(), sink=lambda p, s, d: got.extend(s),
                                    max_wait_s=TRICKLE_WAIT_MS / 1e3)
     stats = consumer.run()
-    launches = _kernel_counts()["convnext_block_fused"]
+    launches = _launches(mark)["convnext_block_fused"]
     daemon_launches += launches
     print(f"  trickle, {TRICKLE_BURST} alerts every {TRICKLE_PERIOD_S} s x {TRICKLE_BURSTS}, "
           f"max_wait {TRICKLE_WAIT_MS} ms: {stats['batches']} batches, latency p50 "
@@ -2782,7 +2829,7 @@ def _backbone_equal(model, sd: dict, prefix: str) -> bool:
     return all(torch.equal(state[prefix + k].cpu(), torch.as_tensor(v)) for k, v in sd.items())
 
 
-def _distill_step(config, teacher, batch, plain: bool = False):
+def _distill_step(config, teacher, batch):
     """One distill step of a fresh student (seed 0, γ and statistics
     randomised); (loss, {name: grad}, {kernel: launches})."""
     import torch
@@ -2795,12 +2842,12 @@ def _distill_step(config, teacher, batch, plain: bool = False):
     model = build_model(config, device=DEVICE, seed=0)
     _randomise(model, seed=81)
     st = create_train_state(config, model, steps_per_epoch=TRAIN_ALERTS // TRAIN_BATCH)
-    step = make_train_step(config, plain=plain, teacher=teacher)
+    step = make_train_step(config, teacher=teacher)
     torch.cuda.synchronize()
-    _zero_kernel_counts()
+    mark = _launches(by=4)
     m = step(st, *batch)
     torch.cuda.synchronize()
-    counts = _kernel_counts()
+    counts = _launches(mark)
     grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
     return m["loss"].item(), grads, counts
 
@@ -2972,14 +3019,14 @@ def phase_distill(state: dict) -> None:
     distill_mod.load_teacher = capture
     try:
         torch.cuda.synchronize()
-        _zero_kernel_counts()
+        mark = _launches(by=4)
         t0 = time.perf_counter()
         result = distill_main([run_dir, "--student-kind", DISTILL_STUDENT, "--data-dir",
                                data_dir, "--out-root", os.path.join(tmp, "distill"),
                                "--epochs", "1", "--no-figure", "--device", DEVICE])
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts = _kernel_counts()
+        counts = _launches(mark)
     finally:
         distill_mod.load_teacher = load_teacher
     print(f"  cli.distill {DISTILL_STUDENT}: 1 epoch at batch {TRAIN_BATCH}, launches "
@@ -3014,7 +3061,8 @@ def phase_distill(state: dict) -> None:
     # ---- one f32 distill step through both kernels and through both plain models
     batch = batch_of(TRAIN_BATCH)
     loss_k, grads_k, n_k = _distill_step(s_cfg, teacher, batch)
-    loss_p, grads_p, n_p = _distill_step(s_cfg, teacher, batch, plain=True)
+    with _plain_ops():
+        loss_p, grads_p, n_p = _distill_step(s_cfg, teacher, batch)
     rel = abs(loss_k - loss_p) / abs(loss_p)
     worst, worst_name = max(
         ((grads_k[n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30), n)
@@ -3064,14 +3112,14 @@ def phase_distill(state: dict) -> None:
     train_mod.create_train_state = capture_state
     try:
         torch.cuda.synchronize()
-        _zero_kernel_counts()
+        mark = _launches(by=4)
         t0 = time.perf_counter()
         b_result = train_cli([path, "--data-dir", data_dir, "--out-root",
                               os.path.join(tmp, "backbone"), "--run-name", "backbone",
                               "--no-figure", "--device", DEVICE])
         torch.cuda.synchronize()
         b_secs = time.perf_counter() - t0
-        b_counts = _kernel_counts()
+        b_counts = _launches(mark)
     finally:
         train_mod.create_train_state = create_train_state
     check(seeded == [True], "cli.train's model holds the checkpoint's backbone before its "
@@ -3101,16 +3149,16 @@ def phase_distill(state: dict) -> None:
     sub = AlertDataset(val.labels[:n], val.images[:n], val.metadata[:n])
     model = build_model(t_cfg, device=DEVICE)
     model.load_state_dict(t_weights)
-    _zero_kernel_counts()
+    mark = _launches(by=4)
     feats = extract_features(model, t_cfg, sub)
-    f_counts = _kernel_counts()
+    f_counts = _launches(mark)
     plain = []
     hook = final_linear(model).register_forward_pre_hook(lambda _m, a: plain.append(a[0]))
     try:
-        with torch.no_grad():
+        with torch.no_grad(), _plain_ops():
             for s in range(0, n, TRAIN_BATCH):
                 model(torch.from_numpy(sub.images[s:s + TRAIN_BATCH]).to(DEVICE),
-                      torch.from_numpy(sub.metadata[s:s + TRAIN_BATCH]).to(DEVICE), plain=True)
+                      torch.from_numpy(sub.metadata[s:s + TRAIN_BATCH]).to(DEVICE))
     finally:
         hook.remove()
     plain = torch.cat(plain).float().cpu().numpy()
@@ -3317,9 +3365,9 @@ def phase_lifecycle(state: dict) -> None:
     secs, launches = {}, {}
 
     def counted(name, fn):
-        _zero_kernel_counts()
+        mark = _launches(by=4)
         out = fn()
-        launches[name] = _kernel_counts()
+        launches[name] = _launches(mark)
         return out
 
     # ---- acquisition: four source sets through download_training_data
@@ -3331,7 +3379,6 @@ def phase_lifecycle(state: dict) -> None:
           f"({n_corrupt} with an all-NaN science stamp) made in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.synchronize()
-    _zero_kernel_counts()
     path_t0 = time.perf_counter()
     for name, (packets, prv, corrupt) in sets.items():
         t0 = time.perf_counter()
@@ -3964,18 +4011,18 @@ def phase_int8(state: dict) -> None:
         cal = torch.from_numpy(_normalised_triplets(INT8_CAL, seed=81)).to(DEVICE)
         images = torch.from_numpy(_normalised_triplets(BATCH, seed=82)).to(DEVICE)
         meta = torch.from_numpy(meta_all).to(DEVICE)
-        tq.int8_dwconv.launches = 0
+        mark = _launches(by=4)
         qp = tq.prepare_quantized(weights, config, cal)
         torch.cuda.synchronize()
-        cal_launches = tq.int8_dwconv.launches
+        cal_launches = _launches(mark, kernels=("int8_dwconv",))["int8_dwconv"]
         check(cal_launches == per_forward, f"{name}: {per_forward} int8_dwconv launches in "
                                            f"the calibration ({cal_launches})")
         tq.quantized_convnext_logits(qp, images, meta)  # warm
         torch.cuda.synchronize()
-        tq.int8_block.launches = tq.int8_dwconv.launches = 0
+        mark = _launches(by=4)
         logits = tq.quantized_convnext_logits(qp, images, meta)
         torch.cuda.synchronize()
-        launches, dw_launches = tq.int8_block.launches, tq.int8_dwconv.launches
+        launches, dw_launches = _launches(mark, kernels=("int8_block", "int8_dwconv")).values()
         check(launches == per_forward and dw_launches == 0,
               f"{name}: {per_forward} int8_block launches in the int8 forward ({launches}), "
               f"no int8_dwconv launch ({dw_launches})")
@@ -4108,10 +4155,10 @@ def _mesh_step(config, weights, batch, mesh, device, timed: bool = True,
     inputs = [torch.from_numpy(x).to(device) for x in arrays]
     step = make_train_step(config, mesh=mesh)
     torch.cuda.synchronize()
-    _zero_kernel_counts()
+    mark = _launches(by=4)
     m = step(st, *inputs, pos_weight)
     torch.cuda.synchronize()
-    out = {"loss": m["loss"].item(), "launches": _kernel_counts(),
+    out = {"loss": m["loss"].item(), "launches": _launches(mark),
            "grads": _whole_grads(model, mesh),
            "out_w": full_state_dict(model)["combined_head.5.weight"].cpu().clone()}
     ms = {}
@@ -4142,10 +4189,10 @@ def _mesh_scores(config, weights, trips, meta, dtype, mesh, device):
     sc = AlertScorer(config, weights, batch_size=MESH_SCORE_BATCH, dtype=dtype, mesh=mesh,
                      device=device)
     torch.cuda.synchronize()
-    _zero_kernel_counts()
+    mark = _launches(by=4)
     scores = sc(trips, meta)
     torch.cuda.synchronize()
-    return scores, _kernel_counts()
+    return scores, _launches(mark)
 
 
 def mesh_rank(workdir: str) -> None:
@@ -4209,14 +4256,14 @@ def phase_mesh(state: dict) -> None:
         scores = {}
         for name, m in (("no mesh", None), ("mesh 1x1", mesh)):
             torch.cuda.synchronize()
-            _zero_kernel_counts()
+            mark = _launches(by=4)
             t0 = time.perf_counter()
             r = run_training(config, data_dir=data_dir, out_root=os.path.join(tmp, "mesh_a"),
                              run_name=name.replace(" ", "_"), log=lambda _m: None,
                              device=DEVICE, mesh=m)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-            n = _kernel_counts()["convnext_block_fused"]
+            n = _launches(mark)["convnext_block_fused"]
             model = build_model(config, device=DEVICE)
             model.load_state_dict(load_model_checkpoint(config, r["model_dir"]), strict=True)
             scores[name] = predict_dataset(model, config, val)[1]
@@ -4484,19 +4531,18 @@ def phase_report(state: dict) -> None:
     # the widths phase: each size's forward, and every width each kernel was
     # launched at in this run (by variant: tuned, wgmma_any or tf32x3)
     from btsbot_tpu_torch.ops import _build
-    from btsbot_tpu_torch.ops.convnext_block import convnext_block_fused
-    from btsbot_tpu_torch.ops.ln_mlp import fused_ln_mlp
     for kind, (name, n) in WIDTH_FORWARD_LAUNCHES.items():
         entry = kernels[0] if name == "convnext_block_fused" else kernels[1]
         entry["launches_by_path"][f"mm_ConvNeXt {kind} forward (widths)"] = n
     kernels[0]["launches_by_path"]["mm_ConvNeXt cli.serve daemon"] = state["daemon"]["launches"]
-    for entry, fn, key in zip(kernels, (convnext_block_fused, fused_ln_mlp),
-                              ("convnext_block", "ln_mlp")):
+    run = _launches(by=4)
+    for entry, key in zip(kernels, ("convnext_block", "ln_mlp")):
         entry["max_abs_err"] = max([entry["max_abs_err"]] + [
             r["max_abs_err"] for res_ in (state["width_results"], state["nano_results"])
             for (name, _, _), rows in res_.items() if name == entry["name"] for r in rows])
         by = {}
-        for (variant, c, hidden), n in sorted(fn.launches_by_width.items()):
+        for (_, variant, c, hidden), n in sorted(
+                (k, n) for k, n in run.items() if k[0] == entry["name"]):
             by.setdefault(variant, {})[f"{c}x{hidden}"] = n
         entry["launches_by_width"] = by
         entry["widths"] = {v: sorted({int(k.split("x")[0]) for k in d}) for v, d in by.items()}

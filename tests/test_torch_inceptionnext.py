@@ -35,6 +35,7 @@ from btsbot_tpu_torch.interop.weights import state_dict_from_jax
 from btsbot_tpu_torch.models import convnext
 from btsbot_tpu_torch.models.convnext import InceptionMixer, InceptionNeXtBlock
 from btsbot_tpu_torch.models.factory import build_model
+from btsbot_tpu_torch.ops.ln_mlp import ln_mlp_reference
 from test_torch_families import (
     META_COLS,
     UM_NN,
@@ -125,7 +126,8 @@ def test_mlp_ratio_sets_the_hidden_width():
 
 
 def test_every_block_goes_through_fused_ln_mlp(monkeypatch):
-    """12 blocks, 12 calls of the kernel's wrapper; ``plain=True`` none."""
+    """12 blocks, 12 calls of the kernel's wrapper; with its plain version
+    patched in, none."""
     calls = []
     real = convnext.fused_ln_mlp
 
@@ -140,7 +142,8 @@ def test_every_block_goes_through_fused_ln_mlp(monkeypatch):
         out = model(torch.from_numpy(img), torch.from_numpy(meta))
         assert len(calls) == 12
         assert calls[0] == (2 * 15 * 15, 40) and calls[-1] == (2 * 1 * 1, 320)
-        plain = model(torch.from_numpy(img), torch.from_numpy(meta), plain=True)
+        monkeypatch.setattr(convnext, "fused_ln_mlp", ln_mlp_reference)
+        plain = model(torch.from_numpy(img), torch.from_numpy(meta))
     assert len(calls) == 12
     torch.testing.assert_close(plain, out, rtol=0, atol=0)
 

@@ -4,8 +4,9 @@ The plain PyTorch versions (``ln_mlp_reference``, ``convnext_block_reference``)
 are held to the JAX plain versions and to the Pallas kernels in interpret
 mode, on the same numpy inputs.  Tolerances: f32 rtol = atol = 1e-5
 (summation order); bf16 3e-2 (bf16 rounding at different points).  On CPU
-tensors the wrappers take the plain version and count no launch; the CUDA
-kernels themselves are held to these plain versions on the card by
+tensors the wrappers take the plain version and launch no kernel (a
+``chip_smoke.CountingLibrary`` in the kernel library's place counts none);
+the CUDA kernels themselves are held to these plain versions on the card by
 ``chip_smoke.py``.
 """
 
@@ -16,10 +17,12 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import chip_smoke
 from btsbot_tpu.ops.pallas_convnext import _block_reference
 from btsbot_tpu.ops.pallas_convnext import convnext_block_fused as jax_block_fused
 from btsbot_tpu.ops.pallas_mlp import _mlp_reference
 from btsbot_tpu.ops.pallas_mlp import fused_ln_mlp as jax_fused_ln_mlp
+from btsbot_tpu_torch.ops import _build
 from btsbot_tpu_torch.ops import convnext_block as port_block
 from btsbot_tpu_torch.ops import ln_mlp as port_mlp
 
@@ -128,13 +131,13 @@ def test_block_reference_matches_jax_bf16(shape):
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=3e-2, atol=3e-2)
 
 
-def test_wrappers_on_cpu_take_the_plain_path():
+def test_wrappers_on_cpu_take_the_plain_path(monkeypatch):
     rng = np.random.default_rng(2)
     x = torch.tensor(rng.normal(size=(2, 7, 7, 16)), dtype=torch.float32)
     p = _block_params(16, rng)
     dw, mlp = _dw_torch(p, torch.float32), _torch_args(p, torch.float32)
-    block_before = port_block.convnext_block_fused.launches
-    mlp_before = port_mlp.fused_ln_mlp.launches
+    lib = chip_smoke.CountingLibrary(_build.library)
+    monkeypatch.setattr(_build, "library", lib)
     got = port_block.convnext_block_fused(x, *dw, *mlp)
     assert torch.equal(got, port_block.convnext_block_reference(x, *dw, *mlp))
     h, res = x.reshape(-1, 16), x.reshape(-1, 16) * 0.5
@@ -143,8 +146,7 @@ def test_wrappers_on_cpu_take_the_plain_path():
     names = port_block.BLOCK_PARAM_NAMES
     got = port_block.block_params_apply(dict(zip(names, dw + mlp)), x)
     assert torch.equal(got, port_block.convnext_block_reference(x, *dw, *mlp))
-    assert port_block.convnext_block_fused.launches == block_before
-    assert port_mlp.fused_ln_mlp.launches == mlp_before
+    assert not lib.launches
 
 
 def test_wrappers_raise_off_the_cpu_instead_of_falling_back():

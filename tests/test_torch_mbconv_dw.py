@@ -28,9 +28,11 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+import chip_smoke
 from btsbot_tpu_torch.models import maxvit
 from btsbot_tpu_torch.models.common import batch_norm_nhwc
 from btsbot_tpu_torch.models.factory import build_model
+from btsbot_tpu_torch.ops import _build
 from btsbot_tpu_torch.ops import mbconv_dw as mb
 
 SEED = 2**31 + 1213
@@ -218,8 +220,6 @@ def test_the_smoke_checks_every_image_of_the_timed_launch(monkeypatch):
     """``chip_smoke._mbconv_check`` runs the plain version a chunk of images
     at a time over the whole batch: an output wrong in the last chunk only
     fails it."""
-    import chip_smoke
-
     monkeypatch.setattr(chip_smoke, "MAXVIT_MBCONV_CHUNK", 2)
     h, n1, taps, n2 = _draw(5, 6, 16, torch.bfloat16, "cpu", 3)
     got = mb.mbconv_dw(h, n1, taps, n2, 2)
@@ -233,8 +233,6 @@ def test_the_smoke_reports_a_maxvit_forwards_launches_of_both_kernels():
     """The kernels line's entries of ``partition_attention`` and
     ``mbconv_dw``: each shape's row times its launches a maxvit_tiny
     forward (22 and 11), and the launches phase "maxvit" counted."""
-    import chip_smoke
-
     att = [{"dtype": d, "mode": m, "side": s, "kernel_ms": 1.0, "plain_ms": 2.0,
             "bound_ms": 0.5, "max_abs_err": 0.01 * s}
            for d in ("bfloat16", "float32") for s in (56, 28, 14, 7) for m in ("window", "grid")]
@@ -312,13 +310,14 @@ CARD_SHAPES = [(4, s, m, st) for s, m, st in dict.fromkeys(TINY_SHAPES)][:-1] + 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("batch,side,c,stride", CARD_SHAPES)
-def test_kernel_matches_the_plain_version(card, batch, side, c, stride, dtype):
+def test_kernel_matches_the_plain_version(card, batch, side, c, stride, dtype, monkeypatch):
     h, n1, taps, n2 = _draw(batch, side, c, dtype, card, side * c + stride)
-    before = mb.mbconv_dw.launches
+    lib = chip_smoke.CountingLibrary(_build.library)
+    monkeypatch.setattr(_build, "library", lib)
     with torch.no_grad():
         got = mb.mbconv_dw(h, n1, taps, n2, stride)
     torch.cuda.synchronize()
-    assert mb.mbconv_dw.launches == before + 1
+    assert lib.launches == {("mbconv_dw", None, None, None): 1}
     # the padding is live: GELU(BN1(0)) is not 0 in any channel
     assert bool((mb.gelu(n1[3] - n1[0] * n1[2] / torch.sqrt(n1[1] + mb.BN_EPS)) > 0.3).all())
     if dtype == torch.float32:
@@ -340,9 +339,10 @@ def test_kernel_matches_the_plain_version(card, batch, side, c, stride, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_a_scored_batch_makes_11_launches_and_no_cudnn_depthwise_conv(card, dtype, tmp_path):
-    """mm_MaxViT at maxvit_tiny's depths through ``AlertScorer``: the
-    program's counter reads 11 ``mbconv_dw`` launches a batch, and the traced
+def test_a_scored_batch_makes_11_launches_and_no_cudnn_depthwise_conv(card, dtype, tmp_path,
+                                                                      monkeypatch):
+    """mm_MaxViT at maxvit_tiny's depths through ``AlertScorer``: 11
+    ``mbconv_dw`` launches a batch through the kernel library, and the traced
     batch holds 11 kernels of that name and no cuDNN grouped convolution."""
     from benchmark import harness
     from btsbot_tpu_torch.engine.serve import AlertScorer
@@ -353,9 +353,11 @@ def test_a_scored_batch_makes_11_launches_and_no_cudnn_depthwise_conv(card, dtyp
     scorer = AlertScorer(cfg["model"], weights, batch_size=64, dtype=dtype, device=card)
     images, meta = harness.make_pool(64, 25, SEED, card)
     scorer(images, meta)  # warm-up
+    lib = chip_smoke.CountingLibrary(_build.library)
+    monkeypatch.setattr(_build, "library", lib)
     with profiling.trace(str(tmp_path)):
         scores = scorer(images, meta)
-    assert profiling.counters()["mbconv_dw.launches"] == 11
+    assert lib.launches[("mbconv_dw", None, None, None)] == 11
     kernels = [e["name"] for e in json.load(open(tmp_path / "trace.json"))["traceEvents"]
                if e.get("cat") == "kernel"]
     assert sum("mbconv_dw" in k for k in kernels) == 11

@@ -142,9 +142,11 @@ def test_mm_convnext_pico_full_width_matches_flax():
 
 
 @pytest.mark.parametrize("tdv", ["v12", "LS_v12"])
-def test_fast_mm_convnext_logits_matches_jax(tdv):
+def test_fast_mm_convnext_logits_matches_jax(tdv, monkeypatch):
+    import chip_smoke
     from btsbot_tpu.ops.pallas_mlp import fast_mm_convnext_logits as jax_fast
-    from btsbot_tpu_torch.ops.ln_mlp import fast_mm_convnext_logits, fused_ln_mlp
+    from btsbot_tpu_torch.ops import _build
+    from btsbot_tpu_torch.ops.ln_mlp import fast_mm_convnext_logits
 
     config = atto_config(tdv)
     variables = flax_variables(config, seed=5)
@@ -152,20 +154,23 @@ def test_fast_mm_convnext_logits_matches_jax(tdv):
     want = np.asarray(jax_fast(variables, jnp.asarray(img), jnp.asarray(meta), config,
                                interpret=True))
     sd = state_dict_from_jax(config, variables)
-    before = fused_ln_mlp.launches
+    lib = chip_smoke.CountingLibrary(_build.library)
+    monkeypatch.setattr(_build, "library", lib)
     with torch.no_grad():
         got = fast_mm_convnext_logits(sd, torch.from_numpy(img), torch.from_numpy(meta),
                                       config).numpy()
         module = port_model(config, variables)(torch.from_numpy(img),
                                                torch.from_numpy(meta)).numpy()
-    assert fused_ln_mlp.launches == before  # CPU tensors: the plain version
+    assert not lib.launches  # CPU tensors: the plain version
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(got, module.reshape(-1), rtol=1e-4, atol=1e-5)
 
 
-def test_convnext_block_module_matches_flax_block():
+def test_convnext_block_module_matches_flax_block(monkeypatch):
     from btsbot_tpu.models.convnext import ConvNeXtBlock as FlaxBlock
+    from btsbot_tpu_torch.models import convnext
     from btsbot_tpu_torch.models.convnext import ConvNeXtBlock
+    from btsbot_tpu_torch.ops.convnext_block import convnext_block_reference
 
     rng = np.random.default_rng(7)
     x = rng.normal(size=(2, 15, 15, 8)).astype(np.float32)
@@ -185,7 +190,8 @@ def test_convnext_block_module_matches_flax_block():
                            for k, v in sd.items()}, strict=True)
     with torch.no_grad():
         got = block(torch.from_numpy(x)).numpy()
-        plain = block(torch.from_numpy(x), plain=True).numpy()
+        monkeypatch.setattr(convnext, "convnext_block_fused", convnext_block_reference)
+        plain = block(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(got, plain)
 

@@ -26,6 +26,7 @@ reason:
 
 from __future__ import annotations
 
+import collections
 import hashlib
 import json
 
@@ -33,8 +34,10 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from btsbot_tpu_torch.models import maxvit
 from btsbot_tpu_torch.models.factory import build_model
+from btsbot_tpu_torch.ops import _build
 from btsbot_tpu_torch.ops import ln_mlp as port_mlp
 from btsbot_tpu_torch.ops import partition_attention as pa
 
@@ -185,8 +188,6 @@ def test_the_reference_swin_index_is_the_ports():
 def test_the_model_makes_one_attention_and_one_mlp_call_a_half(monkeypatch):
     """Two ``partition_attention`` and two ``fused_ln_mlp`` calls a block (22
     at maxvit_tiny's depths), each block's halves inside the two spans."""
-    from btsbot_tpu_torch.utils import profiling
-
     monkeypatch.setitem(maxvit.MAXVIT_CONFIGS, "maxvit_tiny", TINY_SPEC)
     calls = {"attention": [], "mlp": []}
     real_attn, real_mlp = maxvit.partition_attention, maxvit.fused_ln_mlp
@@ -200,6 +201,8 @@ def test_the_model_makes_one_attention_and_one_mlp_call_a_half(monkeypatch):
         return real_mlp(*args, eps=eps)
     monkeypatch.setattr(maxvit, "partition_attention", attn)
     monkeypatch.setattr(maxvit, "fused_ln_mlp", mlp)
+    lib = chip_smoke.CountingLibrary(_build.library)
+    monkeypatch.setattr(_build, "library", lib)
     cfg = _bench_config(TINY_SPEC, "maxvit_tiny_rw_64.test", 2, 64)
     model = build_model(cfg["model"], device="cpu").eval()
     with torch.profiler.profile() as prof, torch.no_grad():
@@ -209,7 +212,7 @@ def test_the_model_makes_one_attention_and_one_mlp_call_a_half(monkeypatch):
     assert calls["mlp"] == [maxvit.LN_EPS] * 4
     names = [e.name for e in prof.events()]
     assert names.count("maxvit.mbconv") == 2 and names.count("maxvit.attention") == 2
-    assert not profiling.counters().get("partition_attention.launches")  # the CPU: no kernel
+    assert not lib.launches  # the CPU: no kernel
 
 
 # ------------------------------ on the card ------------------------------
@@ -225,15 +228,16 @@ def card():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("grid", [False, True])
 @pytest.mark.parametrize("side,c", STAGES)
-def test_kernel_matches_the_plain_version(card, side, c, grid, dtype):
+def test_kernel_matches_the_plain_version(card, side, c, grid, dtype, monkeypatch):
     g = torch.Generator(device=card).manual_seed(side + c)
     batch = 64
     qkv = torch.randn(batch, side, side, 3 * c, generator=g, device=card).to(dtype)
     table = torch.randn(169, c // 32, generator=g, device=card)
-    before = pa.partition_attention.launches
+    lib = chip_smoke.CountingLibrary(_build.library)
+    monkeypatch.setattr(_build, "library", lib)
     got = pa.partition_attention(qkv, table, 7, grid)
     torch.cuda.synchronize()
-    assert pa.partition_attention.launches == before + 1
+    assert lib.launches == {("partition_attention", None, None, None): 1}
     want = pa.partition_attention_reference(qkv, table, 7, grid)
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
@@ -242,11 +246,13 @@ def test_kernel_matches_the_plain_version(card, side, c, grid, dtype):
 
 
 @pytest.mark.cuda
-def test_a_scored_batch_makes_22_launches_of_each_kernel_and_no_eager_attention(card, tmp_path):
-    """mm_MaxViT at maxvit_tiny's depths through ``AlertScorer`` in bf16: the
-    program's counters read 22 ``partition_attention`` and 22 ``fused_ln_mlp``
-    launches a batch, and the traced batch holds no softmax, batched product
-    or SDPA (no eager attention or f32 score tensor)."""
+def test_a_scored_batch_makes_22_launches_of_each_kernel_and_no_eager_attention(card, tmp_path,
+                                                                                monkeypatch):
+    """mm_MaxViT at maxvit_tiny's depths through ``AlertScorer`` in bf16: 22
+    ``partition_attention`` and 22 ``fused_ln_mlp`` launches a batch through
+    the kernel library, the bytes counter read, and the traced batch holds no
+    softmax, batched product or SDPA (no eager attention or f32 score
+    tensor)."""
     from benchmark import harness
     from btsbot_tpu_torch.engine.serve import AlertScorer
     from btsbot_tpu_torch.utils import profiling
@@ -257,12 +263,13 @@ def test_a_scored_batch_makes_22_launches_of_each_kernel_and_no_eager_attention(
                          device=card)
     images, meta = harness.make_pool(64, 25, SEED, card)
     scorer(images, meta)  # warm-up
+    lib = chip_smoke.CountingLibrary(_build.library)
+    monkeypatch.setattr(_build, "library", lib)
     with profiling.trace(str(tmp_path)):
         scores = scorer(images, meta)
-    counts = profiling.counters()
-    assert counts["partition_attention.launches"] == 22
-    assert counts["fused_ln_mlp.launches"] == 22
-    assert counts["partition_attention.bytes"] > 0 and np.isfinite(scores).all()
+    launches = collections.Counter(key[0] for key in lib.launches.elements())
+    assert launches["partition_attention"] == 22 and launches["fused_ln_mlp"] == 22
+    assert profiling.counters()["partition_attention.bytes"] > 0 and np.isfinite(scores).all()
     names = {e["name"] for e in json.load(open(tmp_path / "trace.json"))["traceEvents"]}
     assert not names & {"aten::_softmax", "aten::softmax", "aten::bmm",
                         "aten::scaled_dot_product_attention"}, names
