@@ -334,8 +334,11 @@ template <class P> __device__ __forceinline__ bool real_vec(int vv, int l, int c
 // c hold zeros); the result goes to Xn as bf16 in the swizzled slab layout,
 // and the padded channels c .. CP as zeros.  lw / lb are this lane's LN
 // scale and shift, packed.  Mean and variance are over the c real channels;
-// eps is the LayerNorm's (kLnEps in the ConvNeXt block).
-template <class P>
+// eps is the LayerNorm's (kLnEps in the ConvNeXt block).  Rounded to bf16
+// after the normalisation, the scale and the shift (the JAX kernels'
+// points), or with ROUND_ONCE only after the shift, the affine in float
+// (ATen's LayerNorm, which ln_qkv.cu replaces).
+template <class P, bool ROUND_ONCE = false>
 __device__ __forceinline__ void layer_norm_to_xn(const float (&v)[P::VEC][8],
                                                  const uint4 (&lw)[P::VEC],
                                                  const uint4 (&lb)[P::VEC],
@@ -370,7 +373,8 @@ __device__ __forceinline__ void layer_norm_to_xn(const float (&v)[P::VEC][8],
       unpack8(lb[vv], b);
 #pragma unroll
       for (int e = 0; e < 8; ++e)
-        o[e] = rb(rb(rb((v[vv][e] - mu) * rstd) * w[e]) + b[e]);
+        o[e] = ROUND_ONCE ? (v[vv][e] - mu) * rstd * w[e] + b[e]
+                          : rb(rb(rb((v[vv][e] - mu) * rstd) * w[e]) + b[e]);
       q.x = pack2(o[0], o[1]), q.y = pack2(o[2], o[3]);
       q.z = pack2(o[4], o[5]), q.w = pack2(o[6], o[7]);
     }

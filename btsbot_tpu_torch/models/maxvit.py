@@ -20,20 +20,23 @@ native size first (``ops.resize``) and pool the final map with no norm.
 
 An attention block runs on the map in its natural NHWC order: LN1, ``qkv``
 and ``proj`` act on each token alone, so only the attention core needs the
-partitions, and ``ops.partition_attention`` gathers them by index inside
-its kernel (``csrc/partition_attention.cu``; on the CPU the plain
-partition → attention → reverse).  The MLP half, x + fc2(GELU(fc1(LN2(x)))),
-is ``ops.ln_mlp.fused_ln_mlp`` with γ = 1 and eps 1e-5 (``csrc/ln_mlp.cu``
-in bfloat16, ``csrc/tf32x3.cu`` in float32).  In eval mode an MBConv's
-middle, BatchNorm → GELU → depthwise 3×3 → BatchNorm → GELU, is
-``ops.mbconv_dw`` (``csrc/mbconv_dw.cu``: one launch, rounded where the
-modules round); in train mode, where BatchNorm takes the batch's
-statistics, the modules run it.  So an eval forward launches three kernels
-a block, 33 at maxvit_tiny's depths, and no partition copy.  The stem, the
-rest of each MBConv (pre-norm, the cuBLAS 1×1 products, squeeze-excite, the
-shortcut), LN1, qkv, proj and the heads are PyTorch's.  Spans
-``maxvit.mbconv`` and ``maxvit.attention`` cover each block's two halves
-while a profiler records.
+partitions.  LN1 → qkv is ``ops.ln_qkv`` (``csrc/ln_qkv.cu``: one launch,
+rounded where the modules round), and ``ops.partition_attention`` gathers
+the partitions by index inside its kernel (``csrc/partition_attention.cu``;
+on the CPU the plain partition → attention → reverse).  The MLP half,
+x + fc2(GELU(fc1(LN2(x)))), is ``ops.ln_mlp.fused_ln_mlp`` with γ = 1 and
+eps 1e-5 (``csrc/ln_mlp.cu`` in bfloat16, ``csrc/tf32x3.cu`` in float32).
+In eval mode an MBConv's middle, BatchNorm → GELU → depthwise 3×3 →
+BatchNorm → GELU, is ``ops.mbconv_dw`` (``csrc/mbconv_dw.cu``: one launch,
+rounded where the modules round); in train mode, where BatchNorm takes the
+batch's statistics, the modules run it.  So an eval forward runs four
+kernels a block in seven launches (the MBConv's; ``ln_qkv``,
+``partition_attention`` and ``fused_ln_mlp`` in each attention half), 77 at
+maxvit_tiny's depths, and no partition copy.  The stem, the rest of each
+MBConv (pre-norm, the cuBLAS 1×1 products, squeeze-excite, the shortcut),
+proj and the heads are PyTorch's.  Spans ``maxvit.mbconv`` and
+``maxvit.attention`` cover each block's two halves while a profiler
+records.
 
 Rounding points are the JAX package's: GELU erf in float32 and tanh in
 bfloat16 (``models.common.gelu``); attention scores accumulated in float32
@@ -60,6 +63,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.ln_mlp import fused_ln_mlp
+from ..ops.ln_qkv import ln_qkv
 from ..ops.mbconv_dw import mbconv_dw
 from ..ops.partition_attention import (  # noqa: F401 — re-exported for callers of the model
     HEAD_DIM,
@@ -216,7 +220,8 @@ class RelPos(nn.Module):
 class RelPosAttention(nn.Module):
     """Multi-head self-attention with relative position bias over the P×P
     windows (``grid=False``) or grids of an NHWC map, in its natural order:
-    qkv → ``partition_attention`` → proj."""
+    the LayerNorm before it (``norm``, the block's LN1) and qkv in one
+    ``ln_qkv`` → ``partition_attention`` → proj."""
 
     def __init__(self, dim: int, window: int, grid: bool):
         super().__init__()
@@ -225,8 +230,9 @@ class RelPosAttention(nn.Module):
         self.proj = Linear(dim, dim)
         self.rel_pos = RelPos(window, dim // HEAD_DIM)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = partition_attention(self.qkv(x), self.rel_pos.relative_position_bias_table,
+    def forward(self, x: torch.Tensor, norm: LayerNorm) -> torch.Tensor:
+        qkv = ln_qkv(x, norm.weight, norm.bias, self.qkv.weight, self.qkv.bias, norm.eps)
+        out = partition_attention(qkv, self.rel_pos.relative_position_bias_table,
                                   self.window, self.grid)
         return self.proj(out)
 
@@ -255,7 +261,7 @@ class PartitionAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape
-        x = x + self.attn(self.norm1(x))
+        x = x + self.attn(x, self.norm1)
         rows = x.reshape(-1, c)
         out = fused_ln_mlp(rows, rows, self.norm2.weight, self.norm2.bias,
                            self.mlp.fc1.weight, self.mlp.fc1.bias, self.mlp.fc2.weight,

@@ -92,6 +92,10 @@ _SIGNATURES = {
     # params_bf16, stream
     "btsbot_mbconv_dw": [_P] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
     + [ctypes.c_int] * 2 + [_P],
+    # MaxViT's LN1 -> qkv (csrc/ln_qkv.cu): x, ln_w, ln_b, w, b, out, M, C,
+    # LN eps, is_bf16, stream
+    "btsbot_ln_qkv": [_P] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                                 ctypes.c_int, _P],
 }
 
 # entry points that return something other than a CUDA error code

@@ -67,24 +67,26 @@ convnext_pico, 63×63×3 triplets + 25 metadata features) on the card:
    for 1 epoch from those two run directories with its branch parameters
    bit-identical afterwards; alerts/s and mm_cnn's train steps/s
    (information only);
-8. MaxViT at ``maxvit_tiny_rw_224.sw_in1k`` full depth (the attention core
-   in ``csrc/partition_attention.cu`` and the MLP halves in ``fused_ln_mlp``,
-   22 launches of each a forward, the MBConvs' middles in
-   ``csrc/mbconv_dw.cu``, 11; the rest cuBLAS / cuDNN; bias tables drawn
-   at std 0.5): the attention kernel against its plain version at the four
-   stage shapes at batch 3072 in both modes (bf16, and f32 at batch 256)
-   with its time, the plain version's and the bound; the MBConv kernel
-   against its plain version at the eight MBConv shapes (both types at the
-   scorer's batches 768 and 192, bf16 at 3072) with its time at 3072 beside
-   the plain version's, cuDNN's depthwise conv's and the bound; ``mm_MaxViT``
+8. MaxViT at ``maxvit_tiny_rw_224.sw_in1k`` full depth (LN1 → qkv in
+   ``csrc/ln_qkv.cu``, the attention core in ``csrc/partition_attention.cu``
+   and the MLP halves in ``fused_ln_mlp``, 22 launches of each a forward, the
+   MBConvs' middles in ``csrc/mbconv_dw.cu``, 11; the rest cuBLAS / cuDNN;
+   bias tables drawn at std 0.5): the attention kernel against its plain
+   version at the four stage shapes at batch 3072 in both modes (bf16, and
+   f32 at batch 256) with its time, the plain version's and the bound; the
+   MBConv kernel against its plain version at the eight MBConv shapes (both
+   types at the scorer's batches 768 and 192, bf16 at 3072) with its time at
+   3072 beside the plain version's, cuDNN's depthwise conv's and the bound;
+   the LN-qkv kernel likewise at the four stage shapes, beside the plain
+   version's time, ``F.layer_norm`` + ``F.linear``'s and the bound; ``mm_MaxViT``
    (metadata 128/128, combined 64/32) and the image-only ``MaxViT`` (256/32
    head): f32 logits and pooled features on the card within rtol 1e-4 /
    atol 1e-5 of the host's on 16 alerts; ``AlertScorer`` in bf16 at batch
    1,024 and f32 at 512 on 2,148 alerts (bf16 within 0.01 of f32) with
    alerts/s and peak memory; ``AlertStreamScorer`` on 1,024 packets (drop
    masks identical to the array path's); the bf16 forward split with CUDA
-   events into stem, MBConvs, attention (qkv, the kernel, proj), MLP halves
-   (LN1, the residual, ``fused_ln_mlp``) and the rest beside each part's
+   events into stem, MBConvs, attention (LN1 → qkv, the kernel, proj), MLP
+   halves (the residual, ``fused_ln_mlp``) and the rest beside each part's
    FLOP bound (counted on a host copy: the kernels are no PyTorch
    operators); one f32 train step on the card against the host on 8
    alerts (loss rtol 1e-4, running statistics 1e-5); ``cli.train`` for
@@ -291,6 +293,10 @@ F32_KERNELS = 2 * (4 + 1)
 # csrc/partition_attention.cu at P = 1..8 (bf16 one or two heads a block,
 # f32) and csrc/mbconv_dw.cu (bf16 and f32, stride 1 and 2)
 MAXVIT_KERNELS = 3 * 8 + 2 * 2
+# csrc/ln_qkv.cu: the bf16 tensor-core kernel at C = 64 .. 512 in steps of 64
+# (HGMMA), and the CUDA-core kernel in bf16 and f32
+LN_QKV_BF16_KERNELS = 8
+LN_QKV_KERNELS = LN_QKV_BF16_KERNELS + 2
 
 META_COLS = [
     "sgscore1", "distpsnr1", "sgscore2", "distpsnr2", "fwhm", "magpsf",
@@ -394,12 +400,18 @@ def phase_setup(state: dict) -> None:
         print(f"  ptxas: {text} [{', '.join(sorted(set(kernels)))}]", flush=True)
     # a build that lost the tensor-core path must not pass
     counts = _build.sass_opcode_counts("HGMMA")
-    hgmma = {k: n for k, n in counts.items() if "bf16" in k and "partition_attention" not in k}
+    hgmma = {k: n for k, n in counts.items()
+             if "bf16" in k and "partition_attention" not in k and "ln_qkv" not in k}
     print(f"  HGMMA instructions in the bf16 kernels: {sorted(hgmma.values())}", flush=True)
     check(len(hgmma) == BF16_KERNELS and min(hgmma.values()) > 0,
           f"all {BF16_KERNELS} bf16 kernels (fused_ln_mlp, the block kernel with and "
           f"without its input tile in shared memory, x 4 tuned + {len(WGMMA_WIDTHS)} padded "
           f"widths) hold HGMMA instructions")
+    qkv = {k: n for k, n in counts.items() if "ln_qkv_bf16_kernel" in k}
+    print(f"  HGMMA instructions in the LN-qkv kernels: {sorted(qkv.values())}", flush=True)
+    check(len(qkv) == LN_QKV_BF16_KERNELS and min(qkv.values()) > 0,
+          f"all {LN_QKV_BF16_KERNELS} bf16 LN-qkv kernels (C = 64 .. 512) hold HGMMA "
+          f"instructions")
     f32 = {k: n for k, n in counts.items() if "tf32x3_kernel" in k}
     print(f"  HGMMA instructions in the float32 kernels: {sorted(f32.values())}", flush=True)
     int8 = [k for k in counts if "int8_dwconv_kernel" in k]
@@ -407,12 +419,13 @@ def phase_setup(state: dict) -> None:
     check(len(f32) == F32_KERNELS and min(f32.values()) > 0 and len(int8) == INT8_KERNELS
           and len(int8_block) == INT8_BLOCK_KERNELS
           and len(counts) == BF16_KERNELS + F32_KERNELS + INT8_KERNELS + INT8_BLOCK_KERNELS
-          + MAXVIT_KERNELS + 2,
+          + MAXVIT_KERNELS + LN_QKV_KERNELS + 2,
           f"all {F32_KERNELS} float32 kernels (fused_ln_mlp and the block kernel, x 1-4 "
           f"blocks of 32 output columns a warpgroup and the 128-row tile) hold HGMMA "
           f"instructions, and the library holds no other kernel but the weight split, "
           f"the split-sum pass, the int8 depthwise kernel in both types, the "
-          f"{INT8_BLOCK_KERNELS} int8 block kernels and MaxViT's {MAXVIT_KERNELS}")
+          f"{INT8_BLOCK_KERNELS} int8 block kernels and MaxViT's {MAXVIT_KERNELS} + "
+          f"{LN_QKV_KERNELS}")
 
 
 # ------------------------------ phase 2 ------------------------------
@@ -1336,7 +1349,8 @@ def _conv_work(config) -> list:
 
 # the wrappers of the kernels without variants, by their C entry points
 KERNEL_ENTRIES = {"btsbot_partition_attention": "partition_attention",
-                  "btsbot_mbconv_dw": "mbconv_dw", "btsbot_int8_block": "int8_block",
+                  "btsbot_mbconv_dw": "mbconv_dw", "btsbot_ln_qkv": "ln_qkv",
+                  "btsbot_int8_block": "int8_block",
                   "btsbot_int8_dwconv": "int8_dwconv"}
 
 
@@ -1411,13 +1425,15 @@ def _plain_ops():
     from btsbot_tpu_torch.models import convnext, maxvit
     from btsbot_tpu_torch.ops.convnext_block import convnext_block_reference
     from btsbot_tpu_torch.ops.ln_mlp import ln_mlp_reference
+    from btsbot_tpu_torch.ops.ln_qkv import ln_qkv_reference
     from btsbot_tpu_torch.ops.mbconv_dw import mbconv_dw_reference
     from btsbot_tpu_torch.ops.partition_attention import partition_attention_reference
 
     with _patched(convnext, convnext_block_fused=convnext_block_reference,
                   fused_ln_mlp=ln_mlp_reference), \
             _patched(maxvit, fused_ln_mlp=ln_mlp_reference, mbconv_dw=mbconv_dw_reference,
-                     partition_attention=partition_attention_reference):
+                     partition_attention=partition_attention_reference,
+                     ln_qkv=ln_qkv_reference):
         yield
 
 
@@ -1746,8 +1762,8 @@ def _maxvit_flops(model, images, meta) -> dict:
 
 def _maxvit_split(sc, images, meta, iters: int = 5) -> dict:
     """ms of the scorer's forward split with CUDA events into the stem, the
-    MBConvs, the attention (window + grid: qkv, the kernel, proj), the MLP
-    halves (the attention halves less their attention: LN1, the residual,
+    MBConvs, the attention (window + grid: ``ln_qkv``, the kernel, proj), the
+    MLP halves (the attention halves less their attention: the residual,
     ``fused_ln_mlp``) and everything else (resize, pool, heads, sigmoid)."""
     import torch
     from btsbot_tpu_torch.models import maxvit as mx
@@ -1785,8 +1801,8 @@ def _maxvit_split(sc, images, meta, iters: int = 5) -> dict:
             h.remove()
     out = {k: sum(a.elapsed_time(b) for a, b in v) / iters for k, v in spans.items()}
     out["forward"] = whole[0].elapsed_time(whole[1]) / iters
+    out["MLP"] -= out["attention"]  # the halves' spans hold their attention's
     out["rest"] = out["forward"] - sum(out[k] for k in kinds.values())
-    out["MLP"] -= out["attention"]
     return out
 
 
@@ -2092,8 +2108,109 @@ def _mbconv_kernel_rows(state: dict) -> list:
     return rows
 
 
+# the scorer's padded batches below 3072 where the LN-qkv kernel is checked
+# in both types (bf16 at 3072 too, the launch that is timed), and the images
+# a call of the plain version takes
+MAXVIT_LN_QKV_CHECK_BATCHES = (768, 192)
+MAXVIT_LN_QKV_CHUNK = 192
+
+
+def _ln_qkv_check(x, params, got, dname) -> float:
+    """Checks the kernel's output ``got`` of the map x against the plain
+    version, run MAXVIT_LN_QKV_CHUNK images at a time (each row is its
+    own).  bf16: within 2^-7 of |plain| + 2^-7 of Σ_k |Wqkv_nk · LN(x)_k|,
+    a bf16 step of the output's rounding and of one normalised operand's
+    (tests/test_torch_ln_qkv.py); f32: within 1e-5 of the largest |plain|.
+    Returns the largest |difference|."""
+    import torch
+    from btsbot_tpu_torch.models.maxvit import LN_EPS
+    from btsbot_tpu_torch.ops import ln_qkv as lq
+
+    ln_w, ln_b, w, b = params
+    worst, beyond, differ, scale = 0.0, 0, 0, 0.0
+    with torch.inference_mode():
+        for i in range(0, x.shape[0], MAXVIT_LN_QKV_CHUNK):
+            xi = x[i:i + MAXVIT_LN_QKV_CHUNK]
+            want = lq.ln_qkv_reference(xi, ln_w, ln_b, w, b, LN_EPS).float()
+            d = (got[i:i + MAXVIT_LN_QKV_CHUNK].float() - want).abs()
+            if dname == "bfloat16":
+                xn = torch.nn.functional.layer_norm(
+                    xi, (xi.shape[-1],), ln_w.to(xi.dtype), ln_b.to(xi.dtype), LN_EPS)
+                tol = 2.0 ** -7 * (want.abs() + xn.float().abs() @ w.float().abs().t())
+                del xn
+            else:
+                tol = 1e-5 * float(want.abs().max())
+            beyond += int((d > tol).sum())
+            differ += int((d > 0).sum())
+            worst = max(worst, float(d.max()))
+            scale = max(scale, float(want.abs().max()))
+            del want, d, tol
+    check(beyond == 0, f"ln_qkv {dname} {tuple(x.shape)} within its bound of the plain version "
+                       f"(max|d| {worst:.3g} of outputs up to {scale:.3g}, {beyond} beyond, "
+                       f"{100 * differ / got.numel():.3f} % differ)")
+    return worst
+
+
+def _ln_qkv_kernel_rows(state: dict) -> list:
+    """The LN-qkv kernel against its plain version (``_ln_qkv_check``) at
+    maxvit_tiny's four stage shapes: both types at the scorer's batches 768
+    and 192, bf16 at 3072 (the launch that is timed); ms at batch 3072 in
+    bf16 of the kernel, the plain version, ``F.layer_norm`` + ``F.linear``
+    called directly (the yardstick, ``library_ms``; the port never calls
+    it) and the bound (x read once, qkv written once, the parameters, at
+    3.35 TB/s, or 6 C² operations a token at 989 TFLOP/s)."""
+    import torch
+    import torch.nn.functional as F
+    from btsbot_tpu_torch.models.maxvit import LN_EPS
+    from btsbot_tpu_torch.ops import ln_qkv as lq
+
+    def draw(batch, side, c, dtype):
+        g = torch.Generator(device=DEVICE).manual_seed(side * c + batch)
+        x = (torch.randn(batch, side, side, c, generator=g, device=DEVICE) + 0.5).to(dtype)
+        ln_w = torch.exp(0.75 * torch.randn(c, generator=g, device=DEVICE))
+        ln_b = 0.3 * torch.randn(c, generator=g, device=DEVICE)
+        w = (torch.rand(3 * c, c, generator=g, device=DEVICE) * 2 - 1) * c ** -0.5
+        b = (torch.rand(3 * c, generator=g, device=DEVICE) * 2 - 1) * c ** -0.5
+        return x, [p.to(dtype) for p in (ln_w, ln_b, w, b)]
+
+    rows = []
+    for side, c in MAXVIT_STAGES:
+        worst = 0.0
+        for batch in MAXVIT_LN_QKV_CHECK_BATCHES:
+            for dname in ("bfloat16", "float32"):
+                x, params = draw(batch, side, c, getattr(torch, dname))
+                with torch.inference_mode():
+                    got = lq.ln_qkv(x, *params, LN_EPS)
+                worst = max(worst, _ln_qkv_check(x, params, got, dname))
+                del x, got
+        x, params = draw(BATCH, side, c, torch.bfloat16)
+        tokens = BATCH * side * side
+        bytes_moved = (4 * c * tokens + 3 * c * c + 5 * c) * 2
+        bound_ms, by = _bound(bytes_moved, 6.0 * c * c * tokens, "bfloat16")
+        ln_w, ln_b, w, b = params
+        with torch.inference_mode():
+            kernel = time_ms(lambda: lq.ln_qkv(x, *params, LN_EPS))
+            got = lq.ln_qkv(x, *params, LN_EPS)  # the timed launch, once more
+        worst = max(worst, _ln_qkv_check(x, params, got, "bfloat16"))
+        del got
+        with torch.inference_mode():
+            plain = time_ms(lambda: lq.ln_qkv_reference(x, *params, LN_EPS), iters=3)
+            library = time_ms(lambda: F.linear(F.layer_norm(x, (c,), ln_w, ln_b, LN_EPS),
+                                               w, b), iters=3)
+        print(f"  ln_qkv bf16 ({BATCH},{side},{side},{c}): kernel {kernel:.4f} ms, plain "
+              f"{plain:.4f} ms, library (F.layer_norm + F.linear) {library:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({by}; {100 * bound_ms / kernel:.1f} %) on {state['gpu']}",
+              flush=True)
+        rows.append({"side": side, "C": c, "batch": BATCH, "kernel_ms": kernel,
+                     "plain_ms": plain, "library_ms": library, "bound_ms": bound_ms,
+                     "bound_by": by, "max_abs_err": worst})
+        del x, params
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _maxvit_entries(state: dict) -> list:
-    """The kernels line's entries of MaxViT's two kernels, which replace no
+    """The kernels line's entries of MaxViT's three kernels, which replace no
     Pallas kernel: one maxvit_tiny forward's launches at batch 3072 in bf16
     (the serving type), each shape's time × the launches of it a forward,
     and the launches phase "maxvit" counted."""
@@ -2104,11 +2221,13 @@ def _maxvit_entries(state: dict) -> list:
     depths = dict(zip((56, 28, 14, 7), maxvit_spec(MAXVIT_KIND)["depths"]))
     att = [(r, depths[r["side"]]) for r in state["maxvit_attention"] if r["dtype"] == "bfloat16"]
     mb = [(r, 1 if r["stride"] == 2 else depths[r["side"]] - 1) for r in state["maxvit_mbconv"]]
+    qkv = [(r, 2 * depths[r["side"]]) for r in state["maxvit_ln_qkv"]]
     launches = state["maxvit_launches"]
     entries = []
     for name, source, rows, per_forward, library in (
             ("partition_attention", "partition_attention.cu", att, 22, False),
-            ("mbconv_dw", "mbconv_dw.cu", mb, 11, True)):
+            ("mbconv_dw", "mbconv_dw.cu", mb, 11, True),
+            ("ln_qkv", "ln_qkv.cu", qkv, 22, True)):
         def total(key):
             return sum(r[key] * n for r, n in rows)
         check(sum(n for _, n in rows) == per_forward,
@@ -2125,8 +2244,9 @@ def _maxvit_entries(state: dict) -> list:
             "library_ms": total("library_ms") if library else None,
             "bound_ms": total("bound_ms"), "bound_by": "bytes",
             "per": f"one maxvit_tiny forward at batch {BATCH}, bfloat16 ({per_forward} "
-                   f"launches)" + ("; library_ms: cuDNN's depthwise conv alone" if library
-                                   else "")})
+                   f"launches)" + {"mbconv_dw": "; library_ms: cuDNN's depthwise conv alone",
+                                   "ln_qkv": "; library_ms: F.layer_norm + F.linear"}.get(
+                                       name, "")})
     return entries
 
 
@@ -2155,10 +2275,11 @@ def phase_maxvit(state: dict) -> None:
     meta = np.random.default_rng(32).normal(size=(MAXVIT_ALERTS, len(META_COLS))).astype(
         np.float32)
     maxvit_kernels = ("convnext_block_fused", "fused_ln_mlp", "partition_attention",
-                      "mbconv_dw")
+                      "mbconv_dw", "ln_qkv")
 
     state["maxvit_attention"] = _attention_kernel_rows(state)
     state["maxvit_mbconv"] = _mbconv_kernel_rows(state)
+    state["maxvit_ln_qkv"] = _ln_qkv_kernel_rows(state)
     mark = _launches(by=4)
     served = {name: _serve_maxvit(name, configs[name], trips, meta, state)
               for name in ("mm_MaxViT", "MaxViT")}
@@ -2168,9 +2289,10 @@ def phase_maxvit(state: dict) -> None:
     check(serving["convnext_block_fused"] == 0 and serving["fused_ln_mlp"] > 0
           and serving["fused_ln_mlp"] == serving["partition_attention"]
           and serving["fused_ln_mlp"] % 22 == 0
-          and 2 * serving["mbconv_dw"] == serving["fused_ln_mlp"],
-          f"MaxViT serving launches no block kernel and 22 partition_attention, 22 "
-          f"fused_ln_mlp and 11 mbconv_dw launches a forward ({serving})")
+          and 2 * serving["mbconv_dw"] == serving["fused_ln_mlp"]
+          and serving["ln_qkv"] == serving["fused_ln_mlp"],
+          f"MaxViT serving launches no block kernel and 22 ln_qkv, 22 partition_attention, "
+          f"22 fused_ln_mlp and 11 mbconv_dw launches a forward ({serving})")
 
     # ---- training
     tmp, _ = _smoke_split(state)
@@ -2251,7 +2373,7 @@ def phase_maxvit(state: dict) -> None:
                                 "fusion_cli_s": fusion_secs, "rate160": rate160}
     total = _launches(mark, kernels=maxvit_kernels)
     state["maxvit_launches"] = {k: {"serving": serving[k], "total": total[k]}
-                                for k in ("partition_attention", "mbconv_dw")}
+                                for k in ("partition_attention", "mbconv_dw", "ln_qkv")}
 
 
 # ------------------------------ phase 9 ------------------------------

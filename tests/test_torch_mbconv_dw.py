@@ -239,9 +239,13 @@ def test_the_smoke_reports_a_maxvit_forwards_launches_of_both_kernels():
     mbc = [{"side": s, "mid": m, "stride": st, "kernel_ms": float(s), "plain_ms": 3.0,
             "library_ms": 2.0, "bound_ms": 1.0, "max_abs_err": 0.0}
            for s, m, st in chip_smoke.MAXVIT_MBCONVS]
-    state = {"maxvit_attention": att, "maxvit_mbconv": mbc, "maxvit_launches": {
-        "partition_attention": {"serving": 44, "total": 66},
-        "mbconv_dw": {"serving": 22, "total": 33}}}
+    qkv = [{"side": s, "C": c, "kernel_ms": 1.0, "plain_ms": 2.0, "library_ms": 2.0,
+            "bound_ms": 0.5, "max_abs_err": 0.0} for s, c in chip_smoke.MAXVIT_STAGES]
+    state = {"maxvit_attention": att, "maxvit_mbconv": mbc, "maxvit_ln_qkv": qkv,
+             "maxvit_launches": {
+                 "partition_attention": {"serving": 44, "total": 66},
+                 "mbconv_dw": {"serving": 22, "total": 33},
+                 "ln_qkv": {"serving": 44, "total": 66}}}
     entries = {e["name"]: e for e in chip_smoke._maxvit_entries(state)}
     pa, dw = entries["partition_attention"], entries["mbconv_dw"]
     assert (pa["launches_a_forward"], pa["ms"], pa["plain_ms"], pa["bound_ms"]) == (22, 22, 44, 11)

@@ -115,7 +115,7 @@ def test_natural_order_attention_equals_partition_attention_reverse(grid, dtype)
     with torch.no_grad():
         module.attn.rel_pos.relative_position_bias_table.normal_()
         x = torch.randn(2, 14, 21, 64).to(dtype)
-        got = x + module.attn(module.norm1(x))
+        got = x + module.attn(x, module.norm1)
         want = _old_attention_half(module, x)
         qkv = torch.randn(2, 14, 21, 3 * 64).to(dtype)
         table = module.attn.rel_pos.relative_position_bias_table
