@@ -2,7 +2,8 @@
 
 Every family of the JAX package is ported: the CNNs, um_nn, ConvNeXt and
 mm_ConvNeXt (the ``convnext_*`` and ``inceptionnext_*`` kinds), MaxViT and
-mm_MaxViT, and frozen_fusion over any of their image branches.
+mm_MaxViT (the ``maxvit_*`` kinds, and the ``maxxvit_rmlp_*`` kinds, which
+the JAX package lacks), and frozen_fusion over any of their image branches.
 """
 
 from __future__ import annotations

@@ -51,6 +51,11 @@ Module and parameter names are the reference's (timm maxxvit under
 ``maxvit.`` / ``maxvit_backbone.``), so the JAX exporter's state dicts and
 reference checkpoints load with ``strict=True``.  The 1×1 convs keep
 Conv2d weights (O, I, 1, 1) and run as a product over the channel axis.
+
+A ``maxxvit_rmlp_*`` model kind (``MAXXVIT_CONFIGS``; no JAX counterpart)
+gives both models timm's MaxxViT backbone instead (``models.maxxvit``:
+ConvNeXt blocks in place of the MBConvs, a bias table made by an MLP,
+LayerScale), on this module's attention halves.
 """
 
 from __future__ import annotations
@@ -97,6 +102,17 @@ MAXVIT_CONFIGS: dict[str, dict] = {
     "maxvit_base": {"depths": (2, 6, 14, 2), "dims": (96, 192, 384, 768),
                     "stem_width": 64},
 }
+# timm's MaxxViT (models/maxxvit.py, ``maxxvit_rmlp_*_rw_256``): ConvNeXt
+# blocks in place of the MBConvs, an MLP-made bias, LayerScale; the stem's
+# two widths
+MAXXVIT_CONFIGS: dict[str, dict] = {
+    "maxxvit_rmlp_nano": {"depths": (1, 2, 3, 1), "dims": (64, 128, 256, 512),
+                          "stem_width": (32, 64)},
+    "maxxvit_rmlp_tiny": {"depths": (2, 2, 5, 2), "dims": (64, 128, 256, 512),
+                          "stem_width": (32, 64)},
+    "maxxvit_rmlp_small": {"depths": (2, 2, 5, 2), "dims": (96, 192, 384, 768),
+                           "stem_width": (48, 96)},
+}
 DEFAULT_KIND = "maxvit_tiny_rw_224.sw_in1k"
 LN_EPS = 1e-5
 
@@ -108,11 +124,22 @@ def maxvit_spec(model_kind: str) -> dict:
     return MAXVIT_CONFIGS[m.group(1)]
 
 
+def is_maxxvit(model_kind: str) -> bool:
+    return "maxxvit" in model_kind.lower()
+
+
+def maxxvit_spec(model_kind: str) -> dict:
+    m = re.search(r"(maxxvit_rmlp_[a-z]+)", model_kind)
+    if not m or m.group(1) not in MAXXVIT_CONFIGS:
+        raise ValueError(f"Unknown MaxxViT variant in model_kind: {model_kind}")
+    return MAXXVIT_CONFIGS[m.group(1)]
+
+
 def get_model_image_size(model_kind: str) -> int:
     """Native input resolution from the timm model string: a terminal
-    ``_<res>`` or one before a variant suffix (``maxvit_tiny_rw_224.sw_in1k``);
-    224 when there is none."""
-    if "maxvit" in model_kind.lower():
+    ``_<res>`` or one before a variant suffix (``maxvit_tiny_rw_224.sw_in1k``,
+    ``maxxvit_rmlp_small_rw_256.sw_in1k``); 224 when there is none."""
+    if re.search(r"maxx?vit", model_kind.lower()):
         m = re.search(r"_(\d+)(?=\.|$)", model_kind)
         if m:
             return int(m.group(1))
@@ -209,32 +236,50 @@ def _running(bn: BatchNorm2d) -> tuple:
 
 class RelPos(nn.Module):
     """The (2w−1)² × heads bias table (its swin index is
-    ``ops.partition_attention.rel_position_index``)."""
+    ``ops.partition_attention.rel_position_index``); a call returns it."""
 
     def __init__(self, window: int, num_heads: int):
         super().__init__()
         self.relative_position_bias_table = nn.Parameter(
             nn.init.trunc_normal_(torch.empty((2 * window - 1) ** 2, num_heads), std=0.02))
 
+    def forward(self) -> torch.Tensor:
+        return self.relative_position_bias_table
+
+
+class LayerScale(nn.Module):
+    """A per-channel gain γ (timm ``LayerScale``, init 1e-6)."""
+
+    def __init__(self, dim: int, init_value: float = 1e-6):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.full((dim,), float(init_value)))
+
 
 class RelPosAttention(nn.Module):
     """Multi-head self-attention with relative position bias over the P×P
     windows (``grid=False``) or grids of an NHWC map, in its natural order:
     the LayerNorm before it (``norm``, the block's LN1) and qkv in one
-    ``ln_qkv`` → ``partition_attention`` → proj."""
+    ``ln_qkv`` → ``partition_attention`` → proj.  ``rel_pos`` is a module
+    whose call gives the ((2P − 1)², heads) table (default ``RelPos``, a
+    learned table); a layer scale ``gamma`` on proj's output is folded into
+    proj's weight and bias (in float32, then the map's type)."""
 
-    def __init__(self, dim: int, window: int, grid: bool):
+    def __init__(self, dim: int, window: int, grid: bool, rel_pos: nn.Module | None = None):
         super().__init__()
         self.window, self.grid = window, grid
         self.qkv = Linear(dim, 3 * dim)
         self.proj = Linear(dim, dim)
-        self.rel_pos = RelPos(window, dim // HEAD_DIM)
+        self.rel_pos = RelPos(window, dim // HEAD_DIM) if rel_pos is None else rel_pos
 
-    def forward(self, x: torch.Tensor, norm: LayerNorm) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, norm: LayerNorm,
+                gamma: torch.Tensor | None = None) -> torch.Tensor:
         qkv = ln_qkv(x, norm.weight, norm.bias, self.qkv.weight, self.qkv.bias, norm.eps)
-        out = partition_attention(qkv, self.rel_pos.relative_position_bias_table,
-                                  self.window, self.grid)
-        return self.proj(out)
+        out = partition_attention(qkv, self.rel_pos(), self.window, self.grid)
+        if gamma is None:
+            return self.proj(out)
+        g = gamma.float()
+        return F.linear(out, (self.proj.weight.float() * g[:, None]).to(out.dtype),
+                        (self.proj.bias.float() * g).to(out.dtype))
 
 
 class TransformerMlp(nn.Module):
@@ -248,24 +293,31 @@ class TransformerMlp(nn.Module):
 
 class PartitionAttention(nn.Module):
     """Pre-LN attention + MLP over window (``grid=False``) or grid
-    partitions of an NHWC map."""
+    partitions of an NHWC map; ``rel_pos`` as ``RelPosAttention``'s.  With
+    ``layer_scale`` (MaxxViT) each half's branch is scaled by its γ (``ls1``
+    on the attention's, ``ls2`` on the MLP's); without, the MLP's γ is 1."""
 
-    def __init__(self, dim: int, window: int, grid: bool):
+    def __init__(self, dim: int, window: int, grid: bool, rel_pos: nn.Module | None = None,
+                 layer_scale: bool = False):
         super().__init__()
         self.window = window
         self.norm1 = LayerNorm(dim, eps=LN_EPS)
-        self.attn = RelPosAttention(dim, window, grid)
+        self.attn = RelPosAttention(dim, window, grid, rel_pos)
+        self.ls1 = LayerScale(dim) if layer_scale else None
         self.norm2 = LayerNorm(dim, eps=LN_EPS)
         self.mlp = TransformerMlp(dim)
-        self.register_buffer("ones", torch.ones(dim), persistent=False)  # the MLP's γ
+        self.ls2 = LayerScale(dim) if layer_scale else None
+        if not layer_scale:
+            self.register_buffer("ones", torch.ones(dim), persistent=False)  # the MLP's γ
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape
-        x = x + self.attn(x, self.norm1)
+        x = x + self.attn(x, self.norm1, None if self.ls1 is None else self.ls1.gamma)
         rows = x.reshape(-1, c)
         out = fused_ln_mlp(rows, rows, self.norm2.weight, self.norm2.bias,
                            self.mlp.fc1.weight, self.mlp.fc1.bias, self.mlp.fc2.weight,
-                           self.mlp.fc2.bias, self.ones, eps=LN_EPS)
+                           self.mlp.fc2.bias, self.ones if self.ls2 is None else self.ls2.gamma,
+                           eps=LN_EPS)
         return out.reshape(b, h, w, c)
 
 
@@ -284,10 +336,14 @@ class MaxViTBlock(nn.Module):
 
 
 class MaxViTStage(nn.Module):
-    def __init__(self, in_chs: int, dim: int, depth: int, window: int):
+    """``depth`` blocks of ``block`` (MaxViT's or MaxxViT's); the first takes
+    ``in_chs`` channels at stride 2."""
+
+    def __init__(self, in_chs: int, dim: int, depth: int, window: int,
+                 block: type = MaxViTBlock):
         super().__init__()
         self.blocks = nn.ModuleList(
-            MaxViTBlock(in_chs if b == 0 else dim, dim, 2 if b == 0 else 1, window)
+            block(in_chs if b == 0 else dim, dim, 2 if b == 0 else 1, window)
             for b in range(depth))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -316,15 +372,24 @@ class MaxViTBackbone(nn.Module):
         return self.head(x)
 
 
-def backbone_from_config(config, head: Sequence[nn.Module] = ()) -> MaxViTBackbone:
+def backbone_from_config(config, head: Sequence[nn.Module] = ()) -> nn.Module:
+    """The MaxViT backbone of the config's ``model_kind``, or the MaxxViT one
+    (``models.maxxvit``) for a ``maxxvit_*`` kind."""
     kind = config.get("model_kind", DEFAULT_KIND)
+    if is_maxxvit(kind):
+        from .maxxvit import MaxxViTBackbone  # it builds on this module's layers
+
+        spec = maxxvit_spec(kind)
+        return MaxxViTBackbone(spec["depths"], spec["dims"], spec["stem_width"],
+                               maxvit_window(kind), head)
     spec = maxvit_spec(kind)
     return MaxViTBackbone(spec["depths"], spec["dims"], spec["stem_width"],
                           maxvit_window(kind), head)
 
 
 def feature_size(config) -> int:
-    return maxvit_spec(config.get("model_kind", DEFAULT_KIND))["dims"][-1]
+    kind = config.get("model_kind", DEFAULT_KIND)
+    return (maxxvit_spec(kind) if is_maxxvit(kind) else maxvit_spec(kind))["dims"][-1]
 
 
 def image_size(config) -> int:
